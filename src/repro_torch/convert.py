@@ -1,0 +1,27 @@
+"""Parameters of the JAX package, as numpy arrays, into the port's tensors.
+
+``params_from_jax(jax.tree.map(np.asarray, params))`` keeps the tree (the
+port uses the JAX package's layout, per-layer leaves stacked ``[L, ...]``)
+and turns every leaf into a torch tensor on ``device``, so that both
+packages compute with the same weights.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def params_from_jax(np_params: Any, *, device: DeviceLike = None) -> Any:
+    """Nested dicts of numpy arrays -> the same dicts of tensors (copies)."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, copy=True)).to(device)
+
+    return walk(np_params)

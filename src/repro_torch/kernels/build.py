@@ -1,0 +1,81 @@
+"""Build the CUDA sources under ``src/repro_torch/csrc/`` and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``build/kernels/lib<name>-<digest>.so`` at the root of
+the checkout (a directory ``.gitignore`` lists), then loaded with
+``ctypes``.  The digest covers the source and the flags, so an edited
+source rebuilds and an unchanged one loads the library already built.
+Nothing here runs at import time: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# name -> (seconds, compiler output) of the builds this process ran
+BUILD_LOG: Dict[str, tuple] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Sequence[str]) -> List[Path]:
+    """Compile every named source that is not built yet, all ``nvcc``
+    processes started together; raises with the compiler's output if one
+    fails.  Returns the library paths in order."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = [library_path(n) for n in names]
+    jobs = []
+    t0 = time.perf_counter()
+    for name, path in zip(names, paths):
+        if path.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, path, tmp, proc))
+    for name, path, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, path)
+        BUILD_LOG[name] = (time.perf_counter() - t0, log)
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        (path,) = build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    return lib

@@ -1,0 +1,156 @@
+"""Multi-head attention with GQA/MQA, RoPE, qk-norm and KV caching.
+
+The port of ``repro.models.attention`` for sequences up to
+``FLASH_THRESHOLD``: the einsum path.  Longer self-attention took the
+JAX package's chunked flash twin (``_flash_ref``); that waits for the
+flash_attention kernel's slice (ROADMAP.md) and raises here.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.common import (
+    apply_rope, dense, dense_init, rms_norm, rope_angles,
+)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # [B, Hkv, S_max, hd]  ([L, B, ...] when stacked)
+    v: torch.Tensor   # [B, Hkv, S_max, hd]
+
+
+def init_attn_params(gen, cfg, dtype, device) -> dict:
+    hd = cfg.head_dim_
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype, device),
+        "wk": dense_init(gen, cfg.d_model, cfg.kv_heads * hd, dtype, device),
+        "wv": dense_init(gen, cfg.d_model, cfg.kv_heads * hd, dtype, device),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions):
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    quant = cfg.quantization == "bitnet"
+    q = dense(x, p["wq"], quantize=quant).reshape(b, s, cfg.n_heads, hd)
+    k = dense(x, p["wk"], quantize=quant).reshape(b, s, cfg.kv_heads, hd)
+    v = dense(x, p["wv"], quantize=quant).reshape(b, s, cfg.kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+# Sequences at or below this length use the plain einsum path; longer
+# self-attention takes the chunked flash path (not ported yet).
+FLASH_THRESHOLD = 2048
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset=None, kv_len=None):
+    """q [B,S,H,hd], k/v [B,T,Hkv,hd] — einsum attention, GQA via reshape.
+
+    ``kv_len``: an int, or per-slot lengths ``[B]`` (continuous batching).
+    """
+    if (q.shape[1] > FLASH_THRESHOLD and q.shape[1] == k.shape[1]
+            and kv_len is None and q.shape[1] % 1024 == 0
+            and k.shape[1] % 512 == 0):
+        raise NotImplementedError(
+            f"self-attention over {q.shape[1]} > {FLASH_THRESHOLD} tokens "
+            "takes the flash path, which waits for the flash_attention "
+            "kernel's slice (ROADMAP.md)"
+        )
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, hd)
+    scores = torch.einsum(
+        "bskgd,btkd->bkgst", qg.to(torch.float32), k.to(torch.float32)
+    ) / (hd ** 0.5)
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None] + (
+            q_offset if q_offset is not None else 0)
+        kpos = torch.arange(t, device=q.device)[None, :]
+        scores = torch.where((qpos >= kpos)[None, None, None], scores,
+                             torch.tensor(-1e30, device=q.device))
+    elif kv_len is not None:
+        kpos = torch.arange(t, device=q.device)
+        if isinstance(kv_len, torch.Tensor) and kv_len.ndim == 1:
+            mask = kpos[None, :] < kv_len[:, None]          # [B, T]
+            mask = mask[:, None, None, None, :]
+        else:
+            mask = (kpos < kv_len)[None, None, None, None, :]
+        scores = torch.where(mask, scores,
+                             torch.tensor(-1e30, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(torch.float32))
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def attention(
+    p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
+    cache: Optional[KVCache] = None, cache_pos=None,
+) -> tuple:
+    """Full attention sub-layer.
+
+    Training/prefill: ``cache=None`` (or a cache to fill at [0, S)).
+    Decode: x is [B, 1, d]; ``cache_pos`` an int write index or per-slot
+    ``[B]`` int tensor.  Returns (out [B, S, d], new_cache).
+
+    Unlike the JAX package, the cache is written in place (the returned
+    cache holds the same tensors): the engine keeps one cache allocation.
+    """
+    b, s, _ = x.shape
+    quant = cfg.quantization == "bitnet"
+    q, k, v = _project_qkv(p, cfg, x, positions)
+
+    new_cache = None
+    if cache is not None and cache_pos is not None:
+        # decode: append this step's K/V, attend over the full cache
+        kc, vc = cache.k, cache.v
+        if isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1:
+            rows = torch.arange(b, device=x.device)
+            kc[rows, :, cache_pos] = k[:, 0]
+            vc[rows, :, cache_pos] = v[:, 0]
+            kv_len = cache_pos + 1
+        else:
+            pos = int(cache_pos)
+            kc[:, :, pos:pos + s] = k.transpose(1, 2)
+            vc[:, :, pos:pos + s] = v.transpose(1, 2)
+            kv_len = pos + 1
+        new_cache = KVCache(kc, vc)
+        kt = kc.transpose(1, 2)     # [B, S_max, Hkv, hd]
+        vt = vc.transpose(1, 2)
+        if s > 1 and not isinstance(cache_pos, torch.Tensor):
+            # prefill chunk staged at [cache_pos, cache_pos + s): causal
+            # masking against global positions
+            out = _sdpa(q, kt, vt, causal=True, q_offset=int(cache_pos))
+        else:
+            out = _sdpa(q, kt, vt, causal=False, kv_len=kv_len)
+    elif cache is not None:
+        # prefill: fill cache [0, S), causal attention over the prompt
+        cache.k[:, :, :s] = k.transpose(1, 2)
+        cache.v[:, :, :s] = v.transpose(1, 2)
+        new_cache = KVCache(cache.k, cache.v)
+        out = _sdpa(q, k, v, causal=cfg.causal)
+    else:
+        out = _sdpa(q, k, v, causal=cfg.causal)
+
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim_)
+    return dense(out, p["wo"], quantize=quant), new_cache
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, dtype, device) -> KVCache:
+    shape = (batch, cfg.kv_heads, max_seq, cfg.head_dim_)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))

@@ -1,0 +1,62 @@
+"""Model registry: one functional API per architecture family.
+
+The port covers the dense decoder transformer; ``moe``, ``ssm`` (mamba2)
+and ``hybrid`` raise until their slices (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Union
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    """Functional model bundle for one config on one device."""
+
+    cfg: Any
+    device: torch.device
+    init: Callable                 # (seed | torch.Generator) -> params
+    train_logits: Callable         # (params, batch) -> logits
+    init_cache: Callable           # (batch, max_seq) -> cache
+    prefill: Callable              # (params, batch, cache) -> (logits, cache)
+    decode: Optional[Callable]     # (params, token, cache, pos) -> (logits, cache)
+    # chunked in-flight prefill waits for the slice that ports it
+    prefill_chunk: Optional[Callable] = None
+
+
+def _generator(seed: Union[int, torch.Generator],
+               device: torch.device) -> torch.Generator:
+    if isinstance(seed, torch.Generator):
+        return seed
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def build_model(cfg, *, device: DeviceLike = None) -> ModelAPI:
+    """The model API of ``cfg`` on ``device`` (default: the CUDA card)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
+            "port serves the dense decoder family (ROADMAP.md, Queue 1)"
+        )
+    device = resolve_device(device)
+    return ModelAPI(
+        cfg=cfg,
+        device=device,
+        init=lambda seed: transformer.init_params(
+            cfg, _generator(seed, device), device),
+        train_logits=lambda params, batch: transformer.forward_train(
+            cfg, params, batch),
+        init_cache=lambda batch, max_seq: transformer.init_cache(
+            cfg, batch, max_seq, device),
+        prefill=lambda params, batch, cache: transformer.forward_prefill(
+            cfg, params, batch, cache),
+        decode=lambda params, token, cache, pos: transformer.forward_decode(
+            cfg, params, token, cache, pos),
+    )

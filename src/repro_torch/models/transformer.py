@@ -1,0 +1,171 @@
+"""Decoder transformer over stacked ``[L, ...]`` layer parameters.
+
+The port of ``repro.models.transformer`` for the dense family: the JAX
+package's ``lax.scan`` over layers is a Python loop here, and its sharding
+constraints (no-ops on one device) are gone.  MoE, encoder and VLM
+frontends wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models.attention import (
+    KVCache,
+    attention,
+    init_attn_params,
+    init_kv_cache,
+)
+from repro_torch.models.common import (
+    dense,
+    dense_init,
+    dtype_of,
+    embed_init,
+    rms_norm,
+    swiglu,
+)
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "dense" or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: family={cfg.family!r} frontend={cfg.frontend!r} "
+            "is not ported yet; the port serves the dense decoder family "
+            "(ROADMAP.md, Queue 1)"
+        )
+
+
+# --------------------------------------------------------------------------- #
+# Init
+# --------------------------------------------------------------------------- #
+
+def _init_block(cfg, gen, device) -> Dict:
+    dtype = dtype_of(cfg)
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "attn": init_attn_params(gen, cfg, dtype, device),
+        "mlp": {
+            "w1": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+            "w2": dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device),
+            "w3": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        },
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg, gen: torch.Generator, device) -> Dict:
+    """Random parameters from ``gen`` (a ``torch.Generator`` on ``device``),
+    in the JAX package's tree layout: per-layer leaves stacked ``[L, ...]``.
+    The values differ from the JAX package's (another generator); tests
+    share parameters through ``repro_torch.convert``."""
+    _check_family(cfg)
+    dtype = dtype_of(cfg)
+    params = {
+        "embed": {"tokens": embed_init(gen, cfg.vocab, cfg.d_model, dtype,
+                                       device)},
+        "blocks": _stack([_init_block(cfg, gen, device)
+                          for _ in range(cfg.layers)]),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype,
+                                       device)
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# Blocks
+# --------------------------------------------------------------------------- #
+
+def _layer(blocks, i: int):
+    if isinstance(blocks, dict):
+        return {k: _layer(v, i) for k, v in blocks.items()}
+    return blocks[i]
+
+
+def _block(cfg, p, x, positions, cache=None, cache_pos=None):
+    h = rms_norm(x, p["ln1"])
+    attn_out, new_cache = attention(
+        p["attn"], cfg, h, positions=positions, cache=cache,
+        cache_pos=cache_pos,
+    )
+    x = x + attn_out
+    h = rms_norm(x, p["ln2"])
+    x = x + swiglu(h, p["mlp"]["w1"], p["mlp"]["w2"], p["mlp"]["w3"],
+                   quantize=cfg.quantization == "bitnet")
+    return x, new_cache
+
+
+def _run_blocks(cfg, blocks, x, positions, caches=None, cache_pos=None):
+    """Every layer in order; ``caches`` (stacked ``[L, ...]``) are written
+    in place, layer by layer."""
+    for i in range(cfg.layers):
+        cache = None if caches is None else KVCache(caches.k[i], caches.v[i])
+        x, _ = _block(cfg, _layer(blocks, i), x, positions, cache=cache,
+                      cache_pos=cache_pos)
+    return x, caches
+
+
+def _logits(cfg, params, x):
+    x = rms_norm(x, params["ln_f"])
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["tokens"].T
+    return dense(x, params["lm_head"])
+
+
+def _embed_tokens(params, tokens):
+    """Returns (x [B, S, d], positions [B, S])."""
+    x = params["embed"]["tokens"][tokens]
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    return x, positions
+
+
+# --------------------------------------------------------------------------- #
+# Public forward functions
+# --------------------------------------------------------------------------- #
+
+def forward_train(cfg, params, batch) -> torch.Tensor:
+    """The training-shaped forward (no cache): logits [B, S, V]."""
+    _check_family(cfg)
+    x, positions = _embed_tokens(params, batch["tokens"])
+    x, _ = _run_blocks(cfg, params["blocks"], x, positions)
+    return _logits(cfg, params, x)
+
+
+def init_cache(cfg, batch: int, max_seq: int, device) -> KVCache:
+    single = init_kv_cache(cfg, batch, max_seq, dtype_of(cfg), device)
+    return KVCache(single.k[None].repeat(cfg.layers, 1, 1, 1, 1),
+                   single.v[None].repeat(cfg.layers, 1, 1, 1, 1))
+
+
+def forward_prefill(cfg, params, batch, cache: KVCache):
+    """Prompt pass: fills cache[:, :, :, :S), returns (last_logits, cache)."""
+    _check_family(cfg)
+    x, positions = _embed_tokens(params, batch["tokens"])
+    x, new_cache = _run_blocks(cfg, params["blocks"], x, positions,
+                               caches=cache)
+    logits = _logits(cfg, params, x[:, -1:, :])
+    return logits, new_cache
+
+
+def forward_decode(cfg, params, token, cache: KVCache, pos):
+    """One decode step. token [B] int, pos an int or per-slot [B] int
+    tensor.  Returns (logits [B, 1, V], new_cache)."""
+    _check_family(cfg)
+    x = params["embed"]["tokens"][token][:, None, :]     # [B, 1, d]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        positions = pos[:, None].to(torch.int32)
+    else:
+        positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
+                               device=x.device)
+    x, new_cache = _run_blocks(cfg, params["blocks"], x, positions,
+                               caches=cache, cache_pos=pos)
+    return _logits(cfg, params, x), new_cache
