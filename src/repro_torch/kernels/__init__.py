@@ -7,6 +7,9 @@ the CUDA sources live in ``src/repro_torch/csrc/`` and are built by
 
 - bitlinear: int8 activations x K-major packed 2/4-bit (or int8) weights,
              exact int32 accumulation (``csrc/bitlinear.cu``)
+- block_sparse: ZTB block-sparse GEMM that visits only the non-zero
+             weight blocks of a CSR-of-blocks schedule; int8 -> exact int32
+             or float32 (``csrc/block_sparse.cu``)
 
 The dense backend of the runtime's uniform ``tile_gemm(x, w, **kw)``
 contract lives here as :func:`dense_tile_gemm`.

@@ -25,6 +25,14 @@ _BM, _BN = 16, 64         # output tile of one block
 _sm_count: Dict[int, int] = {}
 
 
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    if device.index not in _sm_count:
+        _sm_count[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_count[device.index]
+
+
 def reset_launches() -> None:
     for b in BITS:
         LAUNCHES[b] = 0
@@ -87,13 +95,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bits: int,
     if accumulate:
         # Spread K over enough blocks to fill the card twice; the kernel
         # adds the partial sums with integer atomics (exact in any order).
-        dev = x.device.index
-        if dev not in _sm_count:
-            _sm_count[dev] = torch.cuda.get_device_properties(
-                x.device).multi_processor_count
         tiles = math.ceil(m / _BM) * math.ceil(n / _BN)
         splits = max(1, min(math.ceil(k / _BK),
-                            math.ceil(2 * _sm_count[dev] / tiles)))
+                            math.ceil(2 * sm_count(x.device) / tiles)))
     fn = library("bitlinear").bitlinear_launch
     if fn.argtypes is None:
         ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int

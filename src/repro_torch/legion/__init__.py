@@ -9,13 +9,20 @@ The port of ``repro.legion``, this slice's modules:
             dependencies and operand sources, attention + serve-step
             lowering builders, the overlapped-round pipeline model, and a
             pure-NumPy reference execution
+- lowering: the workload zoo's unified `lower(spec)` front door — the
+            `LoweringSpec` dataclass family covering attention, the
+            serve-step graphs, MoE expert-skip (`lower_moe`), the
+            Mamba-2 SSD scan (`lower_ssd`), and the Zamba2-style hybrid
+            (`lower_hybrid`), plus `zoo_spec` mapping any registry
+            ModelConfig to its family's spec
 - runtime:  plan coverage validation, operand synthesis
 - modes:    adaptive-precision mode selection (W1.58 / W4 / W8, +ZTB)
 - trace:    NoC-dedup traffic measurement + simulate() cross-validation
 - latency:  cycle counting (fill/stream/drain/prefetch) + eq.-2 cross-val
+- roofline: finite-bandwidth sweeps — the stall knee, the paper's HBM
+            budget, counted-vs-analytic stall cross-validation
 
-``lowering``, ``roofline`` and ``ShardedExecutor`` wait for later slices
-(ROADMAP.md, Queue 1).
+``ShardedExecutor`` waits for a later slice (ROADMAP.md, Queue 1).
 """
 from repro_torch.legion.latency import (
     CycleBreakdown,
@@ -25,6 +32,23 @@ from repro_torch.legion.latency import (
     merge_round_criticals,
     total_cycle_error,
     validate_mem_bw,
+)
+from repro_torch.legion.lowering import (
+    AttentionLoweringSpec,
+    HybridSpec,
+    LoweringSpec,
+    MoESpec,
+    SSDSpec,
+    ServeBatchSpec,
+    ServeMixedSpec,
+    ServeStepSpec,
+    lower,
+    lower_hybrid,
+    lower_moe,
+    lower_ssd,
+    moe_stage_names,
+    ssd_stage_names,
+    zoo_spec,
 )
 from repro_torch.legion.machine import (
     ExecContext,
@@ -57,6 +81,13 @@ from repro_torch.legion.program import (
     softmax_int8,
     swiglu_int8,
 )
+from repro_torch.legion.roofline import (
+    BandwidthSweep,
+    SweepPoint,
+    find_stall_knee,
+    hbm_bytes_per_cycle,
+    sweep_bandwidth,
+)
 from repro_torch.legion.runtime import (
     PlanCoverageError,
     synthesize_operands,
@@ -70,15 +101,20 @@ from repro_torch.legion.trace import (
 )
 
 __all__ = [
+    "AttentionLoweringSpec",
+    "BandwidthSweep",
     "CycleBreakdown",
     "CycleCounter",
     "CycleValidation",
     "ExecContext",
     "ExecutorBackend",
+    "HybridSpec",
     "InProcessExecutor",
     "Instrument",
     "LevelTiming",
+    "LoweringSpec",
     "Machine",
+    "MoESpec",
     "ModeSpec",
     "PipelineReport",
     "PipelinedExecutor",
@@ -89,27 +125,42 @@ __all__ = [
     "ProgramStage",
     "Ref",
     "RunReport",
+    "SSDSpec",
+    "ServeBatchSpec",
+    "ServeMixedSpec",
+    "ServeStepSpec",
     "StageValidation",
+    "SweepPoint",
     "TrafficTotals",
     "TrafficTracer",
     "compute_pipeline",
     "cross_validate",
     "cross_validate_cycles",
+    "find_stall_knee",
+    "hbm_bytes_per_cycle",
+    "lower",
     "lower_attention",
+    "lower_hybrid",
+    "lower_moe",
     "lower_serve_batch",
     "lower_serve_mixed",
     "lower_serve_step",
+    "lower_ssd",
     "merge_round_criticals",
+    "moe_stage_names",
     "prepare_context",
     "reference_outputs",
     "requantize_int8",
     "run_assignment_loop",
     "select_mode",
     "softmax_int8",
+    "ssd_stage_names",
+    "sweep_bandwidth",
     "swiglu_int8",
     "synthesize_operands",
     "total_cycle_error",
     "validate_coverage",
     "validate_mem_bw",
     "validate_options",
+    "zoo_spec",
 ]

@@ -20,10 +20,11 @@ core grouping):
 * :class:`ExecutorBackend` — owns the numerics of a prepared plan.
   :class:`InProcessExecutor` runs the classic window/kernel loop on the
   session's device: operands are uploaded once per plan, every tile GEMM
-  launches the bitlinear CUDA kernel (or, for CPU sessions, its plain
-  version) on strided views of them, and the int32 accumulator stays on the
-  device until the stage ends.  (The JAX package's ``ShardedExecutor``
-  waits for a later slice of the port.)
+  launches the bitlinear CUDA kernel — or, for +ZTB modes at kernel
+  granularity, the block-sparse kernel on a schedule built once per plan —
+  (for CPU sessions, their plain versions) on strided views of them, and
+  the int32 accumulator stays on the device until the stage ends.  (The
+  JAX package's ``ShardedExecutor`` waits for a later slice of the port.)
 
 ``Machine(cfg).run(plan_or_workload)`` returns a :class:`RunReport` merging
 outputs, measured bytes, counted cycles, and (for workload runs) the
@@ -62,6 +63,7 @@ from repro_torch.core.workloads import GEMMWorkload, N_PARTITION
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import dense_tile_gemm
 from repro_torch.kernels.bitlinear.ops import tile_gemm as bl_tile
+from repro_torch.kernels.block_sparse import ops as bs_ops
 from repro_torch.legion.latency import (
     CycleBreakdown,
     CycleCounter,
@@ -264,6 +266,10 @@ class ExecContext:
     page_axis: str = ""
     books: Optional[List[ZeroTileBook]] = None
     packed: Optional[List[torch.Tensor]] = None
+    # (instance, n_lo, n_hi) -> block-sparse kernel schedule (+ZTB modes at
+    # kernel granularity)
+    schedules: Optional[Dict[Tuple[int, int, int],
+                             Tuple[torch.Tensor, torch.Tensor]]] = None
 
     @property
     def out_dtype(self) -> torch.dtype:
@@ -329,12 +335,6 @@ def prepare_context(
     if mode is None:
         mode = select_mode(cfg, plan.weight_bits,
                            sparse=ztb not in (None, False))
-    if granularity == "kernel" and mode.backend == BLOCK_SPARSE:
-        raise NotImplementedError(
-            f"mode {mode.name} at kernel granularity needs the block_sparse "
-            "kernel, which is not ported yet (ROADMAP.md, Queue 2); run "
-            "+ZTB modes at window granularity"
-        )
 
     a0 = plan.assignments[0]
     k_window = a0.k_window or cfg.cores * cfg.d
@@ -361,8 +361,16 @@ def prepare_context(
         # the bitlinear kernel streams int8 activations (the reference
         # casts every tile; casting once at upload is the same values)
         x_pad = x_pad.astype(np.int8)
+    elif mode.backend == BLOCK_SPARSE and not int_path:
+        # the reference multiplies +ZTB float tiles in float32
+        x_pad = x_pad.astype(np.float32)
+        w_pad = w_pad.astype(np.float32)
     x_dev = torch.from_numpy(np.ascontiguousarray(x_pad)).to(device)
     w_dev = torch.from_numpy(np.ascontiguousarray(w_pad)).to(device)
+
+    schedules = None
+    if mode.backend == BLOCK_SPARSE and granularity == "kernel":
+        schedules = _block_schedules(plan, w_pad, k_window, device)
 
     packed: Optional[List[torch.Tensor]] = None
     if mode.backend == BITLINEAR:
@@ -401,7 +409,30 @@ def prepare_context(
         wbytes=mode.weight_bytes_per_element(cfg), abytes=cfg.dtype_bytes,
         device=device, page_tokens=plan.page_tokens,
         page_axis=plan.page_axis, books=books, packed=packed,
+        schedules=schedules,
     )
+
+
+def _block_schedules(
+    plan: StagePlan, w_pad: np.ndarray, k_window: int, device: torch.device,
+) -> Dict[Tuple[int, int, int], Tuple[torch.Tensor, torch.Tensor]]:
+    """The block-sparse kernel's schedules of a +ZTB plan, built on the
+    host once per plan and uploaded: one per (instance, n_lo, n_hi) slice
+    an assignment launches, since slices need not line up with the
+    kernel's ``KERNEL_BN`` columns.  Blocks are ``k_window`` x
+    ``KERNEL_BN`` and come from ``w``'s own zeros, as the reference's
+    ``tile_gemm`` derives them (caller books do not enter)."""
+    from repro_torch.legion.runtime import _instance_view
+
+    out = {}
+    for a in plan.assignments:
+        key = (a.instance, a.n_lo, a.n_hi)
+        if key not in out:
+            ws = _instance_view(w_pad, a.instance, 2)[:, a.n_lo:a.n_hi]
+            out[key] = bs_ops.schedule(
+                bs_ops.block_mask(ws, bk=k_window, bn=bs_ops.KERNEL_BN),
+                device)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -432,6 +463,23 @@ def _gemm(ctx: ExecContext, xs: torch.Tensor, inst: int, k_lo: int,
     else:
         acc += dense_tile_gemm(xs[:, k_lo:k_hi], ws,
                                backend=ctx.kernel_backend)
+
+
+def _kernel_call(ctx: ExecContext, xs: torch.Tensor, inst: int, lo: int,
+                 hi: int, acc: torch.Tensor) -> None:
+    """Whole-slice kernel dispatch added into ``acc``: +ZTB modes launch
+    the block-sparse kernel on the slice's prebuilt schedule, the others
+    one tile GEMM over the whole K range."""
+    from repro_torch.legion.runtime import _instance_view
+
+    if ctx.mode.backend != BLOCK_SPARSE:
+        _gemm(ctx, xs, inst, 0, xs.shape[-1], lo, hi, acc)
+        return
+    indices, counts = ctx.schedules[(inst, lo, hi)]
+    ws = _instance_view(ctx.w_pad, inst, 2)[:, lo:hi]
+    bs_ops.block_sparse_matmul(xs, ws, indices, counts, bk=ctx.k_window,
+                               bn=bs_ops.KERNEL_BN,
+                               backend=ctx.kernel_backend, out=acc)
 
 
 def _window_partial(ctx: ExecContext, xs: torch.Tensor, a: Assignment,
@@ -551,8 +599,8 @@ def run_assignment_loop(
 
         if compute and ctx.granularity == "kernel":
             # whole-slice dispatch: one kernel launch per assignment
-            _gemm(ctx, xs, inst, 0, xs.shape[-1], a.n_lo, a.n_hi,
-                  out[inst, :, a.n_lo:a.n_hi])
+            _kernel_call(ctx, xs, inst, a.n_lo, a.n_hi,
+                         out[inst, :, a.n_lo:a.n_hi])
     return out.cpu().numpy() if compute else None
 
 

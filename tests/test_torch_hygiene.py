@@ -36,6 +36,10 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.kernels, repro_torch.convert, repro_torch.quant\n"
         "import repro_torch.configs, repro_torch.core\n"
         "import repro_torch.kernels.build\n"
+        "import repro_torch.kernels.block_sparse.ops\n"
+        "import repro_torch.legion.lowering, repro_torch.legion.roofline\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba2\n"
+        "import repro_torch.models.hybrid\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -3,7 +3,9 @@
 The same workloads, plans and operands go through both Machines; outputs
 must be bit-exact, TrafficTotals / CycleBreakdown equal, and the recorded
 instrument event streams equal call for call, across W1.58 / W4 / W8
-+-ZTB at window granularity and the non-ZTB modes at kernel granularity.
++-ZTB at window and at kernel granularity (+ZTB at kernel granularity is
+the block-sparse kernel's path; the reference multiplies it in float32,
+the port in int8 -> int32, equal while every sum stays below 2^24).
 The copied framework-free modules (core planning and simulation) are held
 to the same identity.
 """
@@ -164,8 +166,8 @@ def test_property_mode_matrix(bits, ztb, case):
     make = lambda mod: _cfg(mod, legions, int(cores), int(d))   # noqa: E731
     _run_both(make, wl, ztb=ztb, seed=case, plan_run=True,
               accumulators=banks)
-    if not ztb:
-        _run_both(make, wl, seed=case, plan_run=True, granularity="kernel")
+    _run_both(make, wl, ztb=ztb, seed=case, plan_run=True,
+              granularity="kernel")
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -176,12 +178,66 @@ def test_core_emulation_and_banks(bits):
     _run_both(make, wl, emulate_cores=True, accumulators=3)
 
 
-def test_kernel_granularity_with_ztb_is_not_ported():
-    wl = twl.GEMMWorkload(**RUNTIME_CASES["w2_qkv"])
-    machine = tlegion.Machine(tcore.dlegion(), granularity="kernel",
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        machine.run(wl, ztb_sparsity=0.5)
+@pytest.mark.parametrize("case", sorted(RUNTIME_CASES))
+def test_runtime_cases_kernel_granularity_ztb(case):
+    kw = dict(RUNTIME_CASES[case])
+    if kw["weight_bits"] == 8:
+        kw = dict(kw, weight_bits=2)       # ZTB prunes quantized weights
+    j, t = _run_both(_dlegion, kw, granularity="kernel", ztb=True)
+    assert t.mode.backend == "block_sparse" and t.ztb_stats is not None
+
+
+def test_kernel_granularity_ztb_matches_pallas_interpret():
+    """tests/test_legion_runtime.py's whole-slice Pallas case: the JAX
+    Machine runs the block-sparse Pallas kernel in interpret mode."""
+    outs = []
+    for wl_mod, core, legion in ((jwl, jcore, jlegion),
+                                 (twl, tcore, tlegion)):
+        wl = wl_mod.GEMMWorkload(stage=wl_mod.OUT_PROJ, m=128, k=256,
+                                 n=1024, weight_bits=2, count=1,
+                                 mapping=wl_mod.N_PARTITION)
+        kw = (dict(kernel_backend="pallas") if legion is jlegion
+              else dict(device="cpu"))
+        rep = legion.Machine(core.dlegion(), granularity="kernel",
+                             **kw).run(wl, ztb_sparsity=0.5)
+        assert rep.mode.backend == "block_sparse" and rep.ok
+        outs.append(rep)
+    np.testing.assert_array_equal(outs[1].outputs, outs[0].outputs)
+    assert _asdict(outs[1].trace.totals) == _asdict(outs[0].trace.totals)
+
+
+def test_kernel_granularity_ztb_ignores_caller_books():
+    """The reference's kernel-granularity +ZTB numerics take the block mask
+    from w's own zeros, not from caller-supplied books; at window
+    granularity the books gate the product."""
+    outs = {}
+    for core_mod, wl_mod, legion in ((jconfig, jwl, jlegion),
+                                     (tconfig, twl, tlegion)):
+        cfg = _cfg(core_mod, 2, 2, 8)
+        wl = wl_mod.GEMMWorkload(stage=wl_mod.OUT_PROJ, m=6, k=64, n=32,
+                                 weight_bits=2, count=1,
+                                 mapping=wl_mod.N_PARTITION)
+        sched = import_module(core_mod.__name__.replace("config",
+                                                        "scheduler"))
+        sparsity = import_module(core_mod.__name__.replace("config",
+                                                           "sparsity"))
+        plan = sched.plan_stage(cfg, wl)
+        x, w = legion.synthesize_operands(wl, seed=2)
+        book = sparsity.ztb_from_weight(w[0], block_k=cfg.d, block_n=16,
+                                        window=cfg.cores)
+        book = dataclasses.replace(book, tile_nonzero=book.tile_nonzero & (
+            np.arange(book.tile_nonzero.shape[0]) % 2 == 0)[:, None, None])
+        for gran in ("window", "kernel"):
+            kw = {"device": "cpu"} if legion is tlegion else {}
+            outs[legion.__name__, gran] = legion.Machine(
+                cfg, granularity=gran, **kw).run(plan, x, w,
+                                                 ztb=[book]).outputs
+    dense = x[0].astype(np.int64) @ w[0].astype(np.int64)
+    for pkg in ("repro.legion", "repro_torch.legion"):
+        np.testing.assert_array_equal(outs[pkg, "kernel"][0], dense)
+        assert not np.array_equal(outs[pkg, "window"][0], dense)
+        np.testing.assert_array_equal(outs[pkg, "window"],
+                                      outs["repro.legion", "window"])
 
 
 def test_kernel_backend_must_match_device():
