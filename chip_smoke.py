@@ -42,6 +42,36 @@ Phases, each printing one JSON line:
              reference_outputs and the expert-skip traffic identity
              against the dense-E twin must hold exactly (skip_eq_err 0).
 
+9. ssd      — the SSD scan kernel against its plain version (chunked, on
+             the card) with the terminal state, at Zamba2-7B's prefill
+             shapes (112 heads, N = P = 64; S = 4096 at chunk 128, and a
+             23-token prompt as one 23-step chunk; dta and dtx as
+             transposed [B, S, H, ...] views and B and C shared by the
+             heads as a stride-0 view, as the model passes them) and
+             Mamba2-130m's (24 heads, N = 128, P = 64, S = 1024): outputs
+             and state within rtol / atol 1e-4 (float32 summed in another
+             order).  Times the kernel, the plain version, the bound.
+10. flash   — the flash-attention kernel against its plain version at
+             Zamba2-7B's long-prompt prefill (B = 1, H = Hkv = 32,
+             S = 4096, d = 112, causal, bf16 against the plain version in
+             float32 within rtol 8e-3 / atol 2e-5; q, k, v as the
+             [B, S, H, d] views the model passes), the same in float32 at
+             S = 1024 (rtol 2e-4 / atol 2e-5) and a GQA case (H = 32,
+             Hkv = 8, d = 128, float32, S = 1024).  Times the kernel, the
+             plain version and scaled_dot_product_attention (a yardstick
+             only: the port never calls it).
+11. hybrid_model — reduced Zamba2 and Mamba2 (float32, no quantization) on
+             the card against the CPU: a 3072-token prefill (the flash
+             path) and 3 decode steps, logits within 1e-4.
+12. hybrid_serve — full Zamba2-7B (81 layers, d_model 3584, bf16, random
+             weights from a seeded torch.Generator) through ServeEngine
+             (4 slots, max_seq 4352): two 4096-token and two short
+             prompts, 16 new tokens each; launch counts taken around the
+             run must be exactly 324 SSD (81 blocks x 4 prefills) and 28
+             flash (14 shared-attention applications x 2 long prompts).
+             Then one 4096-token prefill again under torch.profiler: the
+             device time of every kernel and of the SSD and flash kernels.
+
 Then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -60,6 +90,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12          # H100 SXM dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 120 * 2**20      # > 2x the 50 MB L2
 ZTB_SEQ_LEN = 512                 # the paper evaluates S=2048 (PERF.md §4)
@@ -111,7 +142,7 @@ def device_us(fn, iters: int, kernel: str, attempts: int = 2):
 def phase_build():
     from repro_torch.kernels import build
 
-    sources = ["bitlinear", "block_sparse"]
+    sources = ["bitlinear", "block_sparse", "ssd", "flash_attention"]
     t0 = time.perf_counter()
     build.build(sources)
     seconds = time.perf_counter() - t0
@@ -634,6 +665,340 @@ def phase_zoo():
     return launches
 
 
+def ssd_operands(nb, nh, s, n, p, seed):
+    """dta [B, H, S], dtx [B, H, S, P] and head-shared B, C, float32 on the
+    card in the layout the Mamba-2 block hands over: dta and dtx as
+    transposed views of [B, S, H] and [B, S, H, P], B and C as [B, S, N]
+    expanded over heads (stride 0); scaled as the model scales them
+    (dt ~ softplus, A = -exp(a_log))."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.001, 0.2, size=(nb, s, nh)).astype(np.float32)
+    a = -np.exp(rng.standard_normal((1, 1, nh))).astype(np.float32)
+    x = rng.standard_normal((nb, s, nh, p)).astype(np.float32)
+    bm = rng.standard_normal((nb, 1, s, n)).astype(np.float32)
+    cm = rng.standard_normal((nb, 1, s, n)).astype(np.float32)
+    dev = lambda t: torch.from_numpy(t).cuda()             # noqa: E731
+    return (dev(dt * a).transpose(1, 2),
+            dev(x * dt[..., None]).transpose(1, 2),
+            dev(bm).expand(nb, nh, s, n), dev(cm).expand(nb, nh, s, n))
+
+
+def ssd_bound(nb, nh, s, n, p, chunk):
+    """(bound ms, "bytes" | "operations"): dta, dtx, the head-shared B and
+    C, y and the terminal state over 3.35 TB/s, against the chunked
+    algorithm's float32 multiply-adds (the causal half of each score tile,
+    its product with dtx, the state readout and the state update) over
+    67 TFLOP/s."""
+    nbytes = 4.0 * (nb * nh * s + 2 * nb * nh * s * p + 2 * nb * s * n
+                    + nb * nh * n * p)
+    fma = 0
+    for s0 in range(0, s, chunk):
+        q = min(chunk, s - s0)
+        fma += q * (q + 1) // 2 * (n + p) + 2 * q * n * p
+    ops = 2.0 * nb * nh * fma
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / F32_OPS_PER_S * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def phase_ssd():
+    import torch
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = (("zamba2-7b prefill", 1, 112, 4096, 64, 64, 128),
+              ("zamba2-7b short prompt", 1, 112, 23, 64, 64, 23),
+              ("mamba2-130m prefill", 1, 24, 1024, 128, 64, 128))
+    rows = []
+    for label, nb, nh, s, n, p, chunk in shapes:
+        dta, dtx, bm, cm = ssd_operands(nb, nh, s, n, p, s + n)
+        flat = lambda t: t.reshape(nb * nh, *t.shape[2:])  # noqa: E731
+        plain = lambda: ssd_chunked_ref(                   # noqa: E731
+            flat(dta), flat(dtx), flat(bm), flat(cm), chunk=chunk,
+            return_state=True)
+        call = lambda i: ssd_ops.ssd(                      # noqa: E731
+            dta, dtx, bm, cm, chunk=chunk, return_state=True)
+        y, h = call(0)
+        y_ref, h_ref = plain()
+        torch.cuda.synchronize()
+        y, h = flat(y), flat(h)
+        err = max(float((y - y_ref).abs().max()),
+                  float((h - h_ref).abs().max()))
+        if not (torch.allclose(y, y_ref, rtol=1e-4, atol=1e-4)
+                and torch.allclose(h, h_ref, rtol=1e-4, atol=1e-4)):
+            raise AssertionError(f"ssd {label}: max_abs_err {err}")
+        iters = 20 if s > 1024 else 100
+        bound, by = ssd_bound(nb, nh, s, n, p, chunk)
+        rows.append({
+            "shape": label, "bh": nb * nh, "s": s, "n": n, "p": p,
+            "chunk": chunk, "max_abs_err": err,
+            "y_max_abs": float(y_ref.abs().max()),
+            "ms": cuda_ms(call, iters),
+            "device_us": device_us(call, 5, "ssd_kernel"),
+            "plain_ms": cuda_ms(lambda i: plain(), 5),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+        })
+    for r in rows:
+        emit(dict(phase="ssd", **r))
+    return rows
+
+
+def flash_bound(b, h, hkv, sq, sk, d, causal, elt):
+    """(bound ms, "bytes" | "operations"): q, k, v and o over 3.35 TB/s
+    against the two products over the unmasked (query, key) pairs at the
+    type's peak (bf16 tensor cores, float32 CUDA cores)."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    nbytes = float(elt) * d * (2 * b * h * sq + 2 * b * hkv * sk)
+    ops = 4.0 * b * h * pairs * d
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def phase_flash():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 is held against the plain version in float32 on the same values:
+    # the kernel's math is float32, so the two differ by the output's one
+    # bf16 rounding (at most 2^-8 relative) and float32 summation order
+    shapes = (("zamba2-7b prefill", 32, 32, 4096, 112, torch.bfloat16,
+               dict(rtol=8e-3, atol=2e-5)),
+              ("zamba2-7b prefill f32", 32, 32, 1024, 112, torch.float32,
+               dict(rtol=2e-4, atol=2e-5)),
+              ("gqa", 32, 8, 1024, 128, torch.float32,
+               dict(rtol=2e-4, atol=2e-5)))
+    rows = []
+    for label, h, hkv, s, d, dtype, tol in shapes:
+        rng = np.random.default_rng(s + h + hkv + d)
+        # [B, S, H, d] tensors handed over as [B, H, S, d] views, as the
+        # attention layer does
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (1, s, heads, d)).astype(np.float32)).to(
+                device="cuda", dtype=dtype).transpose(1, 2)
+            for heads in (h, hkv, hkv))
+        call = lambda i: fa.flash_attention(q, k, v,          # noqa: E731
+                                            causal=True)
+        plain = lambda cast: attention_ref(                   # noqa: E731
+            cast(q).reshape(h, s, d), cast(k).reshape(hkv, s, d),
+            cast(v).reshape(hkv, s, d), q_heads=h, kv_heads=hkv,
+            causal=True).reshape(1, h, s, d)
+        got = call(0).float()
+        want = plain(lambda t: t.float())
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        median_want = float(want.abs().median())
+        if not torch.allclose(got, want, **tol):
+            raise AssertionError(f"flash {label}: max_abs_err {err} "
+                                 f"(median |want| {median_want})")
+        del got, want
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        kw = {"enable_gqa": True} if hkv != h else {}
+        iters = 10 if s > 1024 else 30
+        bound, by = flash_bound(1, h, hkv, s, s, d, True,
+                                2 if dtype == torch.bfloat16 else 4)
+        rows.append({
+            "shape": label, "b": 1, "h": h, "hkv": hkv, "s": s, "d": d,
+            "dtype": str(dtype)[6:], "causal": True, "max_abs_err": err,
+            "median_abs_want": median_want, "tolerance": tol,
+            "ms": cuda_ms(call, iters),
+            "device_us": device_us(call, 3, "flash_kernel"),
+            "plain_ms": cuda_ms(lambda i: plain(lambda t: t), 3),
+            "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, **kw), iters),
+            "bound_ms": bound, "bound_by": by,
+        })
+    for r in rows:
+        emit(dict(phase="flash", **r))
+    return rows
+
+
+def phase_hybrid_model():
+    """The Mamba-2 and hybrid model math on the card against the CPU:
+    reduced configs in float32 without quantization, a 3072-token prefill
+    (the hybrid's attention takes the flash path) and 3 decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ("zamba2-7b", "mamba2-130m"):
+        cfg = reduced(get_config(arch)).replace(
+            dtype="float32", quantization="none")
+        cpu = build_model(cfg, device="cpu")
+        gpu = build_model(cfg)
+        p_cpu = cpu.init(0)
+        p_gpu = params_from_jax(_numpy_tree(p_cpu))
+        s = 3072
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            1, cfg.vocab, size=(2, s)))
+        ssd_ops.reset_launches()
+        fa.reset_launches()
+        lc, cc = cpu.prefill(p_cpu, {"tokens": toks}, cpu.init_cache(2, s + 8))
+        lg, cg = gpu.prefill(p_gpu, {"tokens": toks.cuda()},
+                             gpu.init_cache(2, s + 8))
+        torch.cuda.synchronize()
+        launches = {"ssd": sum(ssd_ops.LAUNCHES.values()),
+                    "flash": sum(fa.LAUNCHES.values())}
+        worst = state_err = 0.0
+        pos = torch.tensor([s, s])
+        for _ in range(3):
+            if not torch.isfinite(lg).all() or tuple(lg.shape) != (
+                    2, 1, cfg.vocab):
+                raise AssertionError(f"{arch}: bad logits "
+                                     f"{tuple(lg.shape)}")
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+            state_err = max(state_err,
+                            float((cg.state.cpu() - cc.state).abs().max()))
+            tok = torch.argmax(lc[:, -1], dim=-1)
+            lc, cc = cpu.decode(p_cpu, tok, cc, pos)
+            lg, cg = gpu.decode(p_gpu, tok.cuda(), cg, pos.cuda())
+            pos = pos + 1
+        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        apps = -(-cfg.layers // cfg.attn_every) if cfg.attn_every else 0
+        if launches != {"ssd": cfg.layers, "flash": apps}:
+            raise AssertionError(f"{arch} prefill launches {launches}")
+        # float32 on both, summed in other orders: 1e-4 absolute on logits
+        if worst > 1e-4:
+            raise AssertionError(f"{arch} card vs CPU: max abs diff {worst}")
+        emit({"phase": "hybrid_model", "config": cfg.name,
+              "dtype": "float32", "prompt_tokens": s, "batch": 2,
+              "prefill_launches": launches, "max_abs_diff_vs_cpu": worst,
+              "state_max_abs_diff": state_err, "tolerance": 1e-4})
+
+
+def traced_prefill(api, params, prompt, max_seq):
+    """One single-request prefill as ServeEngine runs it, under
+    torch.profiler: its wall seconds (profiler on) and the device time
+    summed from the trace, for every kernel and for the SSD and flash
+    kernels alone; None where the trace shows no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.from_numpy(prompt[None, :].astype("int64")).to(api.device)
+    cache = api.init_cache(1, max_seq)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = api.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits in the traced prefill")
+    ms = {"all": 0.0, "ssd_kernel": 0.0, "flash_kernel": 0.0}
+    calls = dict.fromkeys(ms, 0)
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for name in ms:
+            if name == "all" or name in evt.name:
+                ms[name] += evt.time_range.elapsed_us() / 1e3
+                calls[name] += 1
+    if not calls["all"]:
+        return {"prompt_tokens": len(prompt), "wall_seconds": wall,
+                "device_ms": None}
+    return {"prompt_tokens": len(prompt), "wall_seconds": wall,
+            "device_ms": ms, "device_calls": calls,
+            "device_idle_share": 1 - ms["all"] / (wall * 1e3)}
+
+
+def phase_hybrid_serve():
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import build_model
+    from repro_torch.models.hybrid import n_attn_apps
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import prepare_params
+
+    cfg = get_config("zamba2-7b")
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=api.device)
+    gen.manual_seed(0)
+    params = prepare_params(api.init(gen))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    # time prefill and decode apart, and check every prefill's logits
+    clock = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(kind, fn):
+        def run(*args):
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"non-finite {kind} logits")
+            clock[kind] += time.perf_counter() - t
+            return logits, cache
+        return run
+    plain_api = api
+    api = dataclasses.replace(api, prefill=timed("prefill", api.prefill),
+                              decode=timed("decode", api.decode))
+    eng = ServeEngine(api, params, max_slots=4, max_seq=4352)
+    rng = np.random.default_rng(0)
+    lengths = (4096, int(rng.integers(4, 24)), 4096, int(rng.integers(4, 24)))
+    reqs = [eng.submit(rng.integers(1, cfg.vocab, size=n), max_new_tokens=16)
+            for n in lengths]
+    ssd_ops.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ssd": sum(ssd_ops.LAUNCHES.values()),
+                "flash": sum(fa.LAUNCHES.values())}
+    if len(done) != len(reqs) or not all(r.done for r in reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
+    for r in reqs:
+        if len(r.output) != 16 or not all(0 <= t < cfg.vocab
+                                          for t in r.output):
+            raise AssertionError(f"request {r.uid}: output {r.output}")
+    long_prompts = sum(n > 2048 for n in lengths)
+    want = {"ssd": cfg.layers * len(reqs),
+            "flash": n_attn_apps(cfg) * long_prompts}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    max_seq, decode_steps = eng.max_seq, len(eng.decode_batch_sizes)
+    del eng
+    traced = traced_prefill(plain_api, params, reqs[0].prompt, max_seq)
+    tokens = sum(len(r.output) for r in done)
+    emit({"phase": "hybrid_serve", "model": cfg.name, "layers": cfg.layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "params": n_params,
+          "setup_seconds": setup_s, "requests": len(done),
+          "prompt_tokens": list(lengths), "tokens": tokens,
+          "wall_seconds": wall, "tokens_per_s": tokens / wall,
+          "prefill_seconds": clock["prefill"],
+          "decode_seconds": clock["decode"],
+          "decode_steps": decode_steps,
+          "launches": launches,
+          "peak_memory_bytes": peak, "traced_prefill": traced})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -653,6 +1018,12 @@ def main() -> int:
     phase_window(cfg, params, backend)
     bs_rows = phase_block_sparse()
     bs_launches = {"ztb": phase_ztb(), "zoo": phase_zoo()}
+    del params, backend                 # release BitNet-1.58B
+    torch.cuda.empty_cache()
+    ssd_rows = phase_ssd()
+    fa_rows = phase_flash()
+    phase_hybrid_model()
+    hy_launches = phase_hybrid_serve()
 
     head = next(r for r in rows if r["stage"] == "mlp_up" and r["m"] == 1
                 and r["bits"] == 2)
@@ -684,6 +1055,29 @@ def main() -> int:
         "ms": bs_head["ms"], "plain_ms": bs_head["plain_ms"],
         "bound_ms": bs_head["bound_ms"], "bound_by": bs_head["bound_by"],
         "library_ms": bs_head["library_ms"],
+    }, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:82",
+        "launches": hy_launches["ssd"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
+        "shape": {k: ssd_rows[0][k] for k in ("shape", "bh", "s", "n", "p",
+                                              "chunk")},
+        "ms": ssd_rows[0]["ms"], "plain_ms": ssd_rows[0]["plain_ms"],
+        "bound_ms": ssd_rows[0]["bound_ms"],
+        "bound_by": ssd_rows[0]["bound_by"], "library_ms": None,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+        "launches": hy_launches["flash"],
+        "max_abs_err": max(r["max_abs_err"] for r in fa_rows),
+        "shape": {k: fa_rows[0][k] for k in ("shape", "h", "hkv", "s", "d",
+                                             "dtype")},
+        "ms": fa_rows[0]["ms"], "plain_ms": fa_rows[0]["plain_ms"],
+        "bound_ms": fa_rows[0]["bound_ms"],
+        "bound_by": fa_rows[0]["bound_by"],
+        "library_ms": fa_rows[0]["library_ms"],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the paper's compute hot-spots.
 
 Each kernel subpackage ships ``ref.py`` (the plain PyTorch version) and
-``ops.py`` (the public wrapper with ``backend="auto"|"reference"|"cuda"``);
+``ops.py`` (the public wrapper with ``backend="auto"|"reference"|"cuda"``,
+and ``"naive"`` for the SSD recurrence);
 the CUDA sources live in ``src/repro_torch/csrc/`` and are built by
 :mod:`repro_torch.kernels.build` at first use.
 
@@ -10,6 +11,10 @@ the CUDA sources live in ``src/repro_torch/csrc/`` and are built by
 - block_sparse: ZTB block-sparse GEMM that visits only the non-zero
              weight blocks of a CSR-of-blocks schedule; int8 -> exact int32
              or float32 (``csrc/block_sparse.cu``)
+- ssd:       the Mamba-2 chunked SSD scan, the state carried on chip
+             across chunks, terminal state on request (``csrc/ssd.cu``)
+- flash_attention: online-softmax attention, causal or full, GQA,
+             float32 or bfloat16 (``csrc/flash_attention.cu``)
 
 The dense backend of the runtime's uniform ``tile_gemm(x, w, **kw)``
 contract lives here as :func:`dense_tile_gemm`.

@@ -1,0 +1,85 @@
+"""Plain PyTorch versions of the SSD scan kernel.
+
+``ssd_scan_ref``      — the exact per-timestep recurrence (ground truth;
+                        O(S) sequential).
+``ssd_chunked_ref``   — the chunked SSD, the kernel's own math vectorised
+                        over chunks, with the chunk-to-chunk state carry as a
+                        loop.
+
+Inputs are pre-scaled (``dta = dt * A`` [negative], ``dtx = dt * x``) and
+computed in float32; see ``csrc/ssd.cu`` for the recurrence.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ssd_scan_ref(
+    dta: torch.Tensor,     # [BH, S]
+    dtx: torch.Tensor,     # [BH, S, P]
+    b: torch.Tensor,       # [BH, S, N]
+    c: torch.Tensor,       # [BH, S, N]
+    *,
+    return_state: bool = False,
+):
+    """h_t = exp(dta_t) h_{t-1} + B_t (dtx_t)^T ;  y_t = C_t^T h_t."""
+    bh, s, p = dtx.shape
+    n = b.shape[-1]
+    f32 = torch.float32
+    dta, dtx, b, c = (t.to(f32) for t in (dta, dtx, b, c))
+    h = torch.zeros((bh, n, p), dtype=f32, device=dtx.device)
+    ys = []
+    for t in range(s):
+        h = torch.exp(dta[:, t])[:, None, None] * h + torch.einsum(
+            "bn,bp->bnp", b[:, t], dtx[:, t])
+        ys.append(torch.einsum("bn,bnp->bp", c[:, t], h))
+    y = torch.stack(ys, dim=1) if ys else dtx.new_zeros((bh, 0, p))
+    return (y, h) if return_state else y
+
+
+def ssd_chunked_ref(
+    dta: torch.Tensor,     # [BH, S]
+    dtx: torch.Tensor,     # [BH, S, P]
+    b: torch.Tensor,       # [BH, S, N]
+    c: torch.Tensor,       # [BH, S, N]
+    *,
+    chunk: int = 128,
+    return_state: bool = False,
+):
+    """Chunked SSD — the kernel's math in plain tensor operations.
+
+    ``S`` must be a multiple of ``chunk`` (as in the JAX package)."""
+    bh, s, p = dtx.shape
+    n = b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"S={s} not divisible by chunk={chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+    dta_c = dta.reshape(bh, nc, chunk).to(f32)
+    dtx_c = dtx.reshape(bh, nc, chunk, p).to(f32)
+    b_c = b.reshape(bh, nc, chunk, n).to(f32)
+    c_c = c.reshape(bh, nc, chunk, n).to(f32)
+
+    la = torch.cumsum(dta_c, dim=-1)                      # [bh, nc, q]
+    idx = torch.arange(chunk, device=dtx.device)
+    lower = idx[:, None] >= idx[None, :]
+    seg = torch.where(lower, la[..., :, None] - la[..., None, :],
+                      torch.tensor(-1e30, dtype=f32, device=dtx.device))
+    decay = torch.exp(seg)                                # [bh, nc, q, q]
+    scores = torch.einsum("bcin,bcjn->bcij", c_c, b_c) * decay
+    y = torch.einsum("bcij,bcjp->bcip", scores, dtx_c)
+
+    # inter-chunk state recurrence over chunks
+    la_tot = la[..., -1]                                  # [bh, nc]
+    decay_out = torch.exp(la_tot[..., None] - la)         # [bh, nc, q]
+    chunk_state = torch.einsum(                           # [bh, nc, n, p]
+        "bcjn,bcjp->bcnp", b_c * decay_out[..., None], dtx_c)
+    h = torch.zeros((bh, n, p), dtype=f32, device=dtx.device)
+    y_inter = []
+    for k in range(nc):
+        y_inter.append(torch.einsum(
+            "bin,bnp->bip", c_c[:, k] * torch.exp(la[:, k])[..., None], h))
+        h = torch.exp(la_tot[:, k])[:, None, None] * h + chunk_state[:, k]
+    y = y + torch.stack(y_inter, dim=1)
+    y = y.reshape(bh, s, p).to(dtx.dtype)
+    return (y, h) if return_state else y

@@ -1,2 +1,3 @@
-"""PyTorch model zoo (the dense decoder family so far, BitNet fake-quant)."""
+"""PyTorch model zoo (dense decoder, Mamba-2 and Zamba2-style hybrid
+families, BitNet fake-quant)."""
 from repro_torch.models.registry import ModelAPI, build_model

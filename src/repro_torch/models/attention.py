@@ -1,9 +1,13 @@
 """Multi-head attention with GQA/MQA, RoPE, qk-norm and KV caching.
 
-The port of ``repro.models.attention`` for sequences up to
-``FLASH_THRESHOLD``: the einsum path.  Longer self-attention took the
-JAX package's chunked flash twin (``_flash_ref``); that waits for the
-flash_attention kernel's slice (ROADMAP.md) and raises here.
+The port of ``repro.models.attention``: the einsum path for sequences up to
+``FLASH_THRESHOLD``, and for longer self-attention the flash path, where
+the JAX package runs its chunked XLA twin of the flash kernel
+(``_flash_ref``) and the port calls
+:func:`repro_torch.kernels.flash_attention.ops.flash_attention`: the flash
+kernel on the card, its plain version on the CPU.  The context-parallel
+flash (``_context_parallel_flash``, a mesh over the sequence) is not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import (
     apply_rope, dense, dense_init, rms_norm, rope_angles,
 )
@@ -52,7 +57,7 @@ def _project_qkv(p, cfg, x, positions):
 
 
 # Sequences at or below this length use the plain einsum path; longer
-# self-attention takes the chunked flash path (not ported yet).
+# self-attention takes the flash path.
 FLASH_THRESHOLD = 2048
 
 
@@ -64,11 +69,10 @@ def _sdpa(q, k, v, *, causal: bool, q_offset=None, kv_len=None):
     if (q.shape[1] > FLASH_THRESHOLD and q.shape[1] == k.shape[1]
             and kv_len is None and q.shape[1] % 1024 == 0
             and k.shape[1] % 512 == 0):
-        raise NotImplementedError(
-            f"self-attention over {q.shape[1]} > {FLASH_THRESHOLD} tokens "
-            "takes the flash path, which waits for the flash_attention "
-            "kernel's slice (ROADMAP.md)"
-        )
+        # [B,S,H,hd] -> [B,H,S,hd] views; the kernel reads them uncopied
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
+        return out.transpose(1, 2)
     b, s, h, hd = q.shape
     t = k.shape[1]
     hkv = k.shape[2]

@@ -1,7 +1,245 @@
-"""Mamba-2 (SSD) — the port so far holds its workload-zoo view only; the
-model and the SSD scan kernel wait for their slice (ROADMAP.md, Queue 1).
+"""Mamba-2 (SSD) model — attention-free SSM family (mamba2-130m) and the
+block reused by the Zamba2-style hybrid.
+
+Block structure (faithful to Mamba-2):
+    in_proj -> [z | xBC | dt];  xBC -> causal depthwise conv -> silu
+    SSD scan over (x, B, C) with per-head decay a_t = exp(dt * A)
+    gated RMSNorm (norm(y) * silu(z)) -> out_proj
+
+The port of ``repro.models.mamba2``: the ``lax.scan`` over layers is a
+Python loop, and the sharding constraints (no-ops on one device) are gone.
+The full-sequence scan is one call of :func:`repro_torch.kernels.ssd.ops.ssd`
+on per-head inputs (the JAX package's Pallas branch): the SSD kernel for
+CUDA tensors, its chunked plain version for CPU tensors.  The group-shared
+B and C go in as an ``expand`` view over heads, not a copy.
+``cfg.kernel_backend``, a TPU choice between that branch and the grouped
+jnp scan, is not read: both compute the same function.  Decode is the
+exact one-step recurrence in plain tensor operations.  Prefill and decode
+write the caches in place (the returned cache holds the same tensors).
 """
 from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.models.common import (
+    dense,
+    dense_init,
+    dtype_of,
+    embed_init,
+    rms_norm,
+)
+from repro_torch.models.transformer import _layer, _stack
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor   # [L, B, conv_dim, k-1] — depthwise conv history
+    state: torch.Tensor  # [L, B, H, N, P]       — SSD recurrent state (f32)
+
+
+def _dims(cfg) -> Tuple[int, int, int, int]:
+    return cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+
+
+def conv_dim(cfg) -> int:
+    di, _, n, _ = _dims(cfg)
+    return di + 2 * n     # x plus B and C streams go through the conv
+
+
+def init_ssm_params(gen: torch.Generator, cfg, dtype, device) -> dict:
+    di, nh, n, _ = _dims(cfg)
+    cd = conv_dim(cfg)
+    f32 = torch.float32
+    return {
+        "in_proj_z": dense_init(gen, cfg.d_model, di, dtype, device),
+        "in_proj_xbc": dense_init(gen, cfg.d_model, cd, dtype, device),
+        "in_proj_dt": dense_init(gen, cfg.d_model, nh, dtype, device),
+        "out_proj": dense_init(gen, di, cfg.d_model, dtype, device),
+        "conv_w": (torch.randn((cfg.conv_kernel, cd), generator=gen,
+                               device=device) * 0.1).to(dtype),
+        "conv_b": torch.zeros((cd,), dtype=dtype, device=device),
+        "a_log": torch.zeros((nh,), dtype=f32, device=device),  # A = -exp
+        "dt_bias": torch.full((nh,), -2.0, dtype=f32, device=device),
+        "d_skip": torch.ones((nh,), dtype=f32, device=device),
+        "norm": torch.ones((di,), dtype=dtype, device=device),
+    }
+
+
+def _causal_conv(xbc, w, b):
+    """Depthwise causal conv over sequence. xbc [B,S,C], w [K,C].
+
+    The JAX package's sum of shifted products (not ``F.conv1d``, which
+    cuDNN would run in TF32 on float32 inputs)."""
+    k = w.shape[0]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    s = xbc.shape[1]
+    out = pad[:, 0:s, :] * w[0][None, None, :]
+    for i in range(1, k):
+        out = out + pad[:, i:i + s, :] * w[i][None, None, :]
+    return out + b[None, None, :]
+
+
+def ssm_block(
+    p: dict, cfg, x: torch.Tensor, *,
+    conv_state: Optional[torch.Tensor] = None,
+    ssd_state: Optional[torch.Tensor] = None,
+    decode: bool = False,
+    return_state: bool = False,
+):
+    """x [B, S, d] -> (y [B, S, d], new_conv_state, new_ssd_state).
+
+    Training/prefill: full-sequence path (conv over S, one SSD scan);
+    ``return_state=True`` also yields the terminal SSD state (prefill).
+    Decode (S == 1): single-step recurrence using the cached states.
+    """
+    b, s, _ = x.shape
+    di, nh, n, hd = _dims(cfg)
+    quant = cfg.quantization == "bitnet"
+    f32 = torch.float32
+    z = dense(x, p["in_proj_z"], quantize=quant)
+    xbc = dense(x, p["in_proj_xbc"], quantize=quant)
+    dt = dense(x, p["in_proj_dt"], quantize=quant)
+    dt = F.softplus(dt.to(f32) + p["dt_bias"])                   # [B,S,nh]
+    a = -torch.exp(p["a_log"])                                   # [nh]
+
+    k = cfg.conv_kernel
+    if decode:
+        # roll the conv history and apply the kernel at one step
+        hist = torch.cat([conv_state, xbc.transpose(1, 2)], dim=-1)
+        new_conv_state = hist[..., 1:]
+        xbc_t = torch.einsum("bck,kc->bc", hist, p["conv_w"]) + p["conv_b"]
+        xbc_t = F.silu(xbc_t)[:, None, :]                        # [B,1,cd]
+    else:
+        xbc_t = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        # cache the last k-1 conv inputs for subsequent decoding
+        new_conv_state = (xbc.transpose(1, 2)[..., s - (k - 1):]
+                          if s >= k - 1 else None)
+
+    xs = xbc_t[..., :di]                     # [B,S,di]
+    bmat = xbc_t[..., di:di + n]             # [B,S,N] (single group)
+    cmat = xbc_t[..., di + n:]               # [B,S,N]
+    xh = xs.reshape(b, s, nh, hd)
+
+    if decode:
+        # exact one-step recurrence: h = exp(dt a) h + dt B x^T; y = C h
+        dta = dt[:, 0] * a[None, :]                        # [B,nh]
+        dtx = xh[:, 0] * dt[:, 0][..., None]               # [B,nh,hd]
+        h = torch.exp(dta)[..., None, None] * ssd_state + torch.einsum(
+            "bn,bhp->bhnp", bmat[:, 0].to(f32), dtx.to(f32))
+        y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].to(f32), h)
+        new_ssd_state = h
+        y = y.reshape(b, 1, di)
+    else:
+        chunk = min(cfg.ssd_chunk, s)
+        dta_h = (dt * a[None, None, :]).transpose(1, 2)          # [B,H,S]
+        dtx_h = (xh * dt[..., None]).transpose(1, 2)             # [B,H,S,hd]
+        # B and C are shared by every head: a stride-0 view, not a copy
+        b_h = bmat.to(f32)[:, None].expand(b, nh, s, n)
+        c_h = cmat.to(f32)[:, None].expand(b, nh, s, n)
+        out = ssd(dta_h, dtx_h, b_h, c_h, chunk=chunk,
+                  return_state=return_state)
+        y, new_ssd_state = out if return_state else (out, None)
+        y = y.transpose(1, 2).reshape(b, s, di)
+
+    y = y + (xh * p["d_skip"][None, None, :, None]).reshape(
+        b, s, di).to(y.dtype)
+    y = rms_norm(y.to(dtype_of(cfg)), p["norm"]) * F.silu(z)
+    return (dense(y, p["out_proj"], quantize=quant), new_conv_state,
+            new_ssd_state)
+
+
+# --------------------------------------------------------------------------- #
+# Full attention-free model (mamba2-130m)
+# --------------------------------------------------------------------------- #
+
+def init_blocks(cfg, gen: torch.Generator, device) -> Dict:
+    """``cfg.layers`` Mamba blocks, per-layer leaves stacked ``[L, ...]``."""
+    dtype = dtype_of(cfg)
+    return _stack([{
+        "ln": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ssm": init_ssm_params(gen, cfg, dtype, device),
+    } for _ in range(cfg.layers)])
+
+
+def init_params(cfg, gen: torch.Generator, device) -> Dict:
+    """Random parameters from ``gen`` in the JAX package's tree layout (the
+    values differ: another generator; tests share parameters through
+    ``repro_torch.convert``)."""
+    dtype = dtype_of(cfg)
+    return {
+        "embed": {"tokens": embed_init(gen, cfg.vocab, cfg.d_model, dtype,
+                                       device)},
+        "blocks": init_blocks(cfg, gen, device),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+
+
+def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
+               decode: bool = False):
+    """Residual Mamba blocks ``layers`` (indices into the stacked
+    ``blocks``) in order.  With ``cache`` (stacked ``[L, ...]``) prefill
+    (``decode=False``) and decode write each layer's conv and SSD states
+    in place."""
+    for i in layers:
+        lp = _layer(blocks, i)
+        h = rms_norm(x, lp["ln"])
+        if cache is None:
+            y, _, _ = ssm_block(lp["ssm"], cfg, h)
+        elif decode:
+            y, conv_st, ssd_st = ssm_block(
+                lp["ssm"], cfg, h, conv_state=cache.conv[i],
+                ssd_state=cache.state[i], decode=True)
+            cache.conv[i] = conv_st
+            cache.state[i] = ssd_st
+        else:
+            y, conv_st, ssd_st = ssm_block(lp["ssm"], cfg, h,
+                                           return_state=True)
+            if conv_st is not None:
+                cache.conv[i] = conv_st
+            cache.state[i] = ssd_st
+        x = x + y
+    return x
+
+
+def forward_train(cfg, params, batch) -> torch.Tensor:
+    x = params["embed"]["tokens"][batch["tokens"]]
+    x = run_blocks(cfg, params["blocks"], x, range(cfg.layers))
+    x = rms_norm(x, params["ln_f"])
+    return x @ params["embed"]["tokens"].T
+
+
+def init_cache(cfg, batch: int, max_seq: int, device) -> SSMCache:
+    del max_seq  # O(1) state — the whole point of the SSM family
+    _, nh, n, hd = _dims(cfg)
+    return SSMCache(
+        conv=torch.zeros((cfg.layers, batch, conv_dim(cfg),
+                          cfg.conv_kernel - 1), dtype=dtype_of(cfg),
+                         device=device),
+        state=torch.zeros((cfg.layers, batch, nh, n, hd),
+                          dtype=torch.float32, device=device),
+    )
+
+
+def forward_prefill(cfg, params, batch, cache: SSMCache):
+    """Prefill is a full forward that also extracts terminal states."""
+    x = params["embed"]["tokens"][batch["tokens"]]
+    x = run_blocks(cfg, params["blocks"], x, range(cfg.layers), cache=cache)
+    x = rms_norm(x, params["ln_f"])
+    logits = x[:, -1:, :] @ params["embed"]["tokens"].T
+    return logits, cache
+
+
+def forward_decode(cfg, params, token, cache: SSMCache, pos):
+    """One decode step; ``pos`` is unused (the state carries the past)."""
+    del pos
+    x = params["embed"]["tokens"][token][:, None, :]
+    x = run_blocks(cfg, params["blocks"], x, range(cfg.layers), cache=cache,
+                   decode=True)
+    x = rms_norm(x, params["ln_f"])
+    return x @ params["embed"]["tokens"].T, cache
 
 
 def ssd_lowering_spec(cfg, *, chunks: int = 2, seed: int = 0):

@@ -1,7 +1,8 @@
 """Model registry: one functional API per architecture family.
 
-The port covers the dense decoder transformer; ``moe``, ``ssm`` (mamba2)
-and ``hybrid`` raise until their slices (ROADMAP.md, Queue 1).
+The port covers the dense decoder transformer, the Mamba-2 SSM family
+(``ssm``) and the Zamba2-style ``hybrid``; ``moe``, ``encoder`` and ``vlm``
+raise until their slices (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,25 +39,33 @@ def _generator(seed: Union[int, torch.Generator],
     return gen
 
 
+# family -> module with init_params / forward_train / init_cache /
+# forward_prefill / forward_decode (the JAX package's _dense_api,
+# _mamba_api and _hybrid_api, which differ only in the module)
+_MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": hybrid}
+
+
 def build_model(cfg, *, device: DeviceLike = None) -> ModelAPI:
     """The model API of ``cfg`` on ``device`` (default: the CUDA card)."""
-    if cfg.family != "dense":
+    if cfg.family not in _MODULES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            "port serves the dense decoder family (ROADMAP.md, Queue 1)"
+            "port serves the dense, ssm and hybrid families (ROADMAP.md, "
+            "Queue 1)"
         )
     device = resolve_device(device)
+    m = _MODULES[cfg.family]
     return ModelAPI(
         cfg=cfg,
         device=device,
-        init=lambda seed: transformer.init_params(
-            cfg, _generator(seed, device), device),
-        train_logits=lambda params, batch: transformer.forward_train(
-            cfg, params, batch),
-        init_cache=lambda batch, max_seq: transformer.init_cache(
-            cfg, batch, max_seq, device),
-        prefill=lambda params, batch, cache: transformer.forward_prefill(
+        init=lambda seed: m.init_params(cfg, _generator(seed, device),
+                                        device),
+        train_logits=lambda params, batch: m.forward_train(cfg, params,
+                                                           batch),
+        init_cache=lambda batch, max_seq: m.init_cache(cfg, batch, max_seq,
+                                                       device),
+        prefill=lambda params, batch, cache: m.forward_prefill(
             cfg, params, batch, cache),
-        decode=lambda params, token, cache, pos: transformer.forward_decode(
+        decode=lambda params, token, cache, pos: m.forward_decode(
             cfg, params, token, cache, pos),
     )

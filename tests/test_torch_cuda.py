@@ -195,3 +195,151 @@ def test_block_sparse_kernel_rejections(card):
         bs_ops.ztb_matmul(x, w.t().contiguous().t(), mask, bk=128, bn=64)
     with pytest.raises(ValueError, match="reference"):
         bs_ops.ztb_matmul(x, w, mask, bk=128, bn=64, backend="reference")
+
+
+# --------------------------------------------------------------------------- #
+# SSD scan: against the per-step recurrence on the card, rtol / atol 1e-4
+# (float32 summed in another order)
+# --------------------------------------------------------------------------- #
+
+def _ssd_operands(nb, nh, s, n, p, seed, device, shared=True):
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.001, 0.2, size=(nb, nh, s)).astype(np.float32)
+    a = -np.exp(rng.standard_normal((1, nh, 1))).astype(np.float32)
+    x = rng.standard_normal((nb, nh, s, p)).astype(np.float32)
+    bh = 1 if shared else nh
+    b = rng.standard_normal((nb, bh, s, n)).astype(np.float32)
+    c = rng.standard_normal((nb, bh, s, n)).astype(np.float32)
+    dev = lambda t: torch.from_numpy(t).to(device)         # noqa: E731
+    return (dev(dt * a), dev(x * dt[..., None]),
+            dev(b).expand(nb, nh, s, n), dev(c).expand(nb, nh, s, n))
+
+
+def _ssd_naive(dta, dtx, b, c):
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    nb, nh, s, p = dtx.shape
+    flat = lambda t: t.reshape(nb * nh, s, -1)             # noqa: E731
+    y, h = ssd_scan_ref(dta.reshape(nb * nh, s), flat(dtx), flat(b),
+                        flat(c), return_state=True)
+    return y.reshape(nb, nh, s, p), h.reshape(nb, nh, -1, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,nh,s,n,p,chunk", [
+    (1, 3, 128, 16, 32, 32), (2, 5, 100, 40, 48, 32), (1, 112, 23, 64, 64, 23),
+    (1, 4, 300, 128, 64, 128), (2, 2, 7, 8, 8, 128), (1, 2, 64, 16, 16, 1)])
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssd_kernel_matches_recurrence(card, nb, nh, s, n, p, chunk, shared):
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    dta, dtx, b, c = _ssd_operands(nb, nh, s, n, p, s + n + p, card, shared)
+    before = ssd_ops.LAUNCHES["float32"]
+    y, h = ssd_ops.ssd(dta, dtx, b, c, chunk=min(chunk, s),
+                       return_state=True)
+    y_only = ssd_ops.ssd(dta, dtx, b, c, chunk=min(chunk, s))
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["float32"] == before + 2
+    y_ref, h_ref = _ssd_naive(dta, dtx, b, c)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, h_ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y_only, y)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_flat_layout_and_strided_views(card):
+    """The JAX package's [BH, S, ...] layout, and [B, S, H, P] memory handed
+    over as a [B, H, S, P] view (as the model does), agree with the chunked
+    plain version."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    dta, dtx, b, c = _ssd_operands(1, 6, 256, 32, 64, 3, card, shared=False)
+    flat = [t[0] for t in (dta, dtx, b, c)]
+    y, h = ssd_ops.ssd(*flat, chunk=64, return_state=True)
+    y_ref, h_ref = ssd_chunked_ref(*flat, chunk=64, return_state=True)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, h_ref, rtol=1e-4, atol=1e-4)
+    dtx_v = dtx.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not dtx_v.is_contiguous()
+    y_v = ssd_ops.ssd(dta, dtx_v, b, c, chunk=64)
+    torch.testing.assert_close(y_v[0], y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejections(card):
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    dta, dtx, b, c = _ssd_operands(1, 2, 32, 8, 8, 1, card)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(dta, dtx.double(), b, c, chunk=32)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(dta, dtx, b.to(torch.bfloat16), c, chunk=32)
+    with pytest.raises(ValueError, match="device"):
+        ssd_ops.ssd(dta, dtx, b.cpu(), c, chunk=32)
+    with pytest.raises(ValueError, match="stride"):
+        ssd_ops.ssd(dta, dtx.transpose(2, 3).contiguous().transpose(2, 3),
+                    b, c, chunk=32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd(dta, dtx, b, c, chunk=256)
+    with pytest.raises(ValueError, match="CPU"):
+        ssd_ops.ssd(dta, dtx, b, c, backend="reference")
+    with pytest.raises(ValueError, match="CPU"):
+        ssd_ops.ssd(dta, dtx, b, c, backend="naive")
+
+
+# --------------------------------------------------------------------------- #
+# flash attention: against the plain version on the card; float32 at
+# rtol 2e-4 / atol 2e-5, bfloat16 at 2e-2 (outputs rounded to bf16)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 4, 4, 100, 100, 32, True), (2, 4, 2, 130, 130, 112, True),
+    (1, 8, 1, 64, 200, 64, False), (1, 4, 4, 77, 150, 128, True),
+    (1, 2, 2, 150, 77, 16, True), (2, 32, 8, 256, 256, 128, True),
+    (1, 3, 3, 1, 1, 8, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(card, b, h, hkv, sq, sk, d,
+                                            causal, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rng = np.random.default_rng(b + h + sq + sk + d)
+    # [B, S, H, d] memory handed over as [B, H, S, d] views
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, heads, d)).astype(
+        np.float32)).to(card, dtype).transpose(1, 2)
+        for s, heads in ((sq, h), (sk, hkv), (sk, hkv)))
+    name = str(dtype).split(".")[1]
+    before = fa.LAUNCHES[name]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, h, sq, d)
+    want = attention_ref(q.reshape(b * h, sq, d), k.reshape(b * hkv, sk, d),
+                         v.reshape(b * hkv, sk, d), q_heads=h, kv_heads=hkv,
+                         causal=causal).reshape(b, h, sq, d)
+    tol = (dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejections(card):
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q = torch.randn((1, 4, 64, 32), device=card)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="device"):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="stride"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           q, q)
+    big = torch.randn((1, 2, 16, 160), device=card)
+    with pytest.raises(ValueError, match="d <="):
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="reference"):
+        fa.flash_attention(q, q, q, backend="reference")

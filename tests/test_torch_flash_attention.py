@@ -1,0 +1,101 @@
+"""Port parity: the flash-attention plain version and wrapper
+(repro_torch.kernels.flash_attention) against the JAX package's Pallas
+kernel in interpret mode, on the same seeded inputs.
+
+Tolerances are the JAX package's own (tests/test_kernels.py): float32
+rtol 2e-4 / atol 2e-5 (full softmax against the online one, summed in
+another order), bfloat16 2e-2 (outputs rounded to bf16 on both sides).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as pallas
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+F32 = dict(rtol=2e-4, atol=2e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def _qkv(b, h, hkv, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_matches_pallas_kernel_f32(h, hkv, causal):
+    arrays = _qkv(2, h, hkv, 256, 256, 32, h * 10 + hkv)
+    want = jax_flash(*map(jnp.asarray, arrays), causal=causal,
+                     backend="pallas", interpret=True)
+    got = ops.flash_attention(*map(torch.from_numpy, arrays), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_matches_pallas_kernel_bf16():
+    arrays = _qkv(1, 2, 2, 128, 128, 64, 3)
+    want = jax_flash(*(jnp.asarray(a, jnp.bfloat16) for a in arrays),
+                     backend="pallas", interpret=True)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                                for a in arrays))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_112(causal):
+    """Zamba2-7B's head dimension, which is not a power of two."""
+    arrays = _qkv(1, 4, 2, 128, 128, 112, 7)
+    want = jax_flash(*map(jnp.asarray, arrays), causal=causal,
+                     backend="pallas", interpret=True)
+    got = ops.flash_attention(*map(torch.from_numpy, arrays), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_causal_convention_when_lengths_differ():
+    """Sq != Sk: the port follows the Pallas kernel (top-left,
+    q position >= k position); the JAX reference aligns bottom-right."""
+    q, k, v = _qkv(1, 2, 2, 128, 256, 32, 11)
+    flat = lambda a, h: a.reshape(h, *a.shape[2:])       # noqa: E731
+    want = pallas(*(jnp.asarray(flat(a, 2)) for a in (q, k, v)),
+                  q_heads=2, kv_heads=2, causal=True, interpret=True)
+    got = attention_ref(*(torch.from_numpy(flat(a, 2)) for a in (q, k, v)),
+                        q_heads=2, kv_heads=2, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    bottom_right = jax_ref(*(jnp.asarray(flat(a, 2)) for a in (q, k, v)),
+                           q_heads=2, kv_heads=2, causal=True)
+    assert np.abs(got.numpy() - np.asarray(bottom_right)).max() > 0.1
+
+
+def test_strided_views_and_ragged_lengths():
+    """[B, S, H, d] tensors handed over as [B, H, S, d] views (the attention
+    layer's call), at lengths no tile size divides."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 77, h, 16)).astype(
+        np.float32)).transpose(1, 2) for h in (4, 2, 2))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    jax_want = jax_ref(*(jnp.asarray(t.contiguous().reshape(-1, 77, 16))
+                         for t in (q, k, v)), q_heads=4, kv_heads=2)
+    np.testing.assert_allclose(got.reshape(-1, 77, 16).numpy(),
+                               np.asarray(jax_want), **F32)
+
+
+def test_wrapper_refuses_bad_calls():
+    q, k, v = map(torch.from_numpy, _qkv(1, 4, 2, 16, 16, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, v, backend="cuda")
+    with pytest.raises(ValueError, match="backend"):
+        ops.flash_attention(q, k, v, backend="pallas")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :1].expand(1, 3, 16, 8), v)   # 4 % 3
+    assert ops.LAUNCHES == {"float32": 0, "bfloat16": 0}

@@ -40,6 +40,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.legion.lowering, repro_torch.legion.roofline\n"
         "import repro_torch.models.moe, repro_torch.models.mamba2\n"
         "import repro_torch.models.hybrid\n"
+        "import repro_torch.kernels.ssd.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

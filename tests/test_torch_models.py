@@ -165,16 +165,44 @@ def test_quantizers_on_identical_inputs():
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m",
-                                  "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "hubert-xlarge",
+                                  "internvl2-76b"])
 def test_unported_families_raise(arch):
+    """The moe, encoder and vlm families raise, naming the ROADMAP."""
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
 
 
-def test_long_self_attention_waits_for_flash_kernel():
-    from repro_torch.models.attention import _sdpa
-    q = torch.zeros((1, 4096, 2, 8))
-    with pytest.raises(NotImplementedError, match="flash"):
-        _sdpa(q, q, q, causal=True)
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_ssm_and_hybrid_families_build(arch):
+    """The ssm and hybrid families build (their parity is in
+    tests/test_torch_hybrid.py)."""
+    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    api = build_model(cfg, device="cpu")
+    assert api.cfg is cfg and api.decode is not None
+
+
+def test_long_self_attention_takes_flash_path(monkeypatch):
+    """Self-attention over more than FLASH_THRESHOLD tokens goes through
+    the flash wrapper (the kernel on the card, its plain version here) and
+    equals the masked softmax; shorter prompts stay on the einsum path."""
+    import repro_torch.models.attention as att
+
+    calls = []
+    flash = att.flash_attention
+    monkeypatch.setattr(att, "flash_attention",
+                        lambda *a, **k: (calls.append(1), flash(*a, **k))[1])
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4096, h, 8)).astype(
+        np.float32)) for h in (2, 1, 1))
+    out = att._sdpa(q, k, v, causal=True)
+    assert calls == [1] and tuple(out.shape) == (1, 4096, 2, 8)
+    scores = torch.einsum("bshd,btd->bhst", q, k[:, :, 0]) / 8 ** 0.5
+    scores = scores.masked_fill(
+        torch.ones(4096, 4096, dtype=torch.bool).triu(1), -1e30)
+    want = torch.einsum("bhst,btd->bshd", torch.softmax(scores, -1),
+                        v[:, :, 0])
+    np.testing.assert_allclose(out.numpy(), want.numpy(), **TOL)
+    att._sdpa(q[:, :2048], k[:, :2048], v[:, :2048], causal=True)
+    assert calls == [1]

@@ -1,0 +1,121 @@
+"""Port parity: the SSD scan's plain versions and wrapper
+(repro_torch.kernels.ssd) against the JAX package's, on the same seeded
+inputs.
+
+Tolerance: rtol = atol = 1e-4, the JAX package's own for this kernel
+(tests/test_kernels.py): float32 throughout, the chunked form sums in
+another order than the recurrence and than XLA.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd.ops import ssd as jax_ssd
+from repro.kernels.ssd.ref import ssd_chunked_ref as jax_chunked
+from repro.kernels.ssd.ref import ssd_scan_ref as jax_naive
+from repro_torch.kernels.ssd import ops
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _inputs(bh, s, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.001, 0.1, size=(bh, s)).astype(np.float32)
+    a = -np.exp(rng.standard_normal((bh,))).astype(np.float32)
+    x = rng.standard_normal((bh, s, p)).astype(np.float32)
+    b = rng.standard_normal((bh, s, n)).astype(np.float32)
+    c = rng.standard_normal((bh, s, n)).astype(np.float32)
+    return dt * a[:, None], x * dt[..., None], b, c
+
+
+def _both(arrays):
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+# the JAX package's sweep shapes plus a chunk that is not a power of two
+@pytest.mark.parametrize("s,p,n,chunk", [(128, 32, 16, 32), (256, 64, 32, 64),
+                                         (64, 16, 64, 64), (96, 24, 40, 24)])
+def test_plain_versions_match_pallas_kernel(s, p, n, chunk):
+    (jd, jx, jb, jc), (td, tx, tb, tc) = _both(_inputs(3, s, p, n, s + n))
+    y_pallas = np.asarray(jax_ssd(jd, jx, jb, jc, backend="pallas",
+                                  chunk=chunk, interpret=True))
+    y_chunk = ops.ssd(td, tx, tb, tc, chunk=chunk, backend="reference")
+    y_auto = ops.ssd(td, tx, tb, tc, chunk=chunk)
+    y_naive = ops.ssd(td, tx, tb, tc, backend="naive")
+    np.testing.assert_allclose(y_chunk.numpy(), y_pallas, **TOL)
+    np.testing.assert_allclose(y_naive.numpy(), y_pallas, **TOL)
+    # the same plain version; ATen's CPU reductions are not bit-stable
+    # from call to call under thread contention
+    torch.testing.assert_close(y_auto, y_chunk, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        y_naive.numpy(), np.asarray(jax_ssd(jd, jx, jb, jc, backend="naive")),
+        **TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(128, 32), (100, 32), (23, 23)])
+def test_terminal_state_matches_reference(s, chunk):
+    """The prefill -> decode handoff; a prompt that is not a chunk multiple
+    is padded (dta = 0, zero inputs) and must give the unpadded answer."""
+    arrays = _inputs(2, s, 16, 8, s)
+    (jd, jx, jb, jc), (td, tx, tb, tc) = _both(arrays)
+    y, h = ops.ssd(td, tx, tb, tc, chunk=chunk, return_state=True)
+    y_n, h_n = jax_naive(jd, jx, jb, jc, return_state=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_n), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_n), **TOL)
+    if s % chunk == 0:
+        y_c, h_c = jax_chunked(jd, jx, jb, jc, chunk=chunk, return_state=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_c), **TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_c), **TOL)
+
+
+def test_ref_functions_match_jax_refs():
+    arrays = _inputs(2, 64, 8, 16, 5)
+    (jd, jx, jb, jc), (td, tx, tb, tc) = _both(arrays)
+    y, h = ssd_scan_ref(td, tx, tb, tc, return_state=True)
+    yj, hj = jax_naive(jd, jx, jb, jc, return_state=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), **TOL)
+    y, h = ssd_chunked_ref(td, tx, tb, tc, chunk=16, return_state=True)
+    yj, hj = jax_chunked(jd, jx, jb, jc, chunk=16, return_state=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), **TOL)
+    with pytest.raises(ValueError, match="divisible"):
+        ssd_chunked_ref(td[:, :60], tx[:, :60], tb[:, :60], tc[:, :60],
+                        chunk=16)
+
+
+def test_split_heads_with_shared_b_c():
+    """[B, H, S, ...] inputs with B/C shared by the heads (a stride-0
+    expand view, as the model passes them) equal the flattened call on
+    materialised copies."""
+    nb, nh, s, p, n = 2, 3, 40, 8, 6
+    dta, dtx, b, c = _inputs(nb * nh, s, p, n, 9)
+    dta4 = torch.from_numpy(dta).reshape(nb, nh, s)
+    dtx4 = torch.from_numpy(dtx).reshape(nb, nh, s, p)
+    bs = torch.from_numpy(b[:nb]).reshape(nb, 1, s, n).expand(nb, nh, s, n)
+    cs = torch.from_numpy(c[:nb]).reshape(nb, 1, s, n).expand(nb, nh, s, n)
+    assert bs.stride(1) == 0
+    y4, h4 = ops.ssd(dta4, dtx4, bs, cs, chunk=16, return_state=True)
+    y3, h3 = ops.ssd(dta4.reshape(-1, s), dtx4.reshape(-1, s, p),
+                     bs.reshape(-1, s, n), cs.reshape(-1, s, n), chunk=16,
+                     return_state=True)
+    assert tuple(y4.shape) == (nb, nh, s, p)
+    assert tuple(h4.shape) == (nb, nh, n, p)
+    torch.testing.assert_close(y4.reshape(-1, s, p), y3, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(h4.reshape(-1, n, p), h3, rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_wrapper_refuses_bad_calls():
+    td, tx, tb, tc = (torch.from_numpy(a) for a in _inputs(2, 32, 8, 4))
+    with pytest.raises(ValueError, match="backend"):
+        ops.ssd(td, tx, tb, tc, backend="pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd(td, tx, tb, tc, backend="cuda")
+    with pytest.raises(ValueError, match="b "):
+        ops.ssd(td, tx, tb[:, :16], tc)
+    assert ops.LAUNCHES == {"float32": 0}      # plain versions never count
