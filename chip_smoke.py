@@ -116,10 +116,14 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_us(fn, iters: int, kernel: str, attempts: int = 2):
-    """Mean device time of ``kernel`` over ``iters`` calls, from
-    torch.profiler's CUDA activity; a trace that shows none is taken again
-    (``attempts`` in all), then None."""
+def device_us(fn, iters: int, kernel: str, per_call: int = 1,
+              attempts: int = 2):
+    """Device time per call of the kernels whose names hold ``kernel``:
+    every matching event of ``iters`` calls summed, over ``iters`` (a call
+    may issue several kernels, ``per_call``, as the SSD scan's three), from
+    torch.profiler's CUDA activity.  A trace that lacks any of the
+    ``iters * per_call`` events is taken again (``attempts`` in all), then
+    None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -134,8 +138,8 @@ def device_us(fn, iters: int, kernel: str, attempts: int = 2):
             if kernel in evt.key:
                 total += evt.device_time_total
                 count += evt.count
-        if count:
-            return total / count
+        if count == iters * per_call:
+            return total / iters
     return None
 
 
@@ -686,19 +690,22 @@ def ssd_operands(nb, nh, s, n, p, seed):
             dev(bm).expand(nb, nh, s, n), dev(cm).expand(nb, nh, s, n))
 
 
-def ssd_bound(nb, nh, s, n, p, chunk):
-    """(bound ms, "bytes" | "operations"): dta, dtx, the head-shared B and
-    C, y and the terminal state over 3.35 TB/s, against the chunked
-    algorithm's float32 multiply-adds (the causal half of each score tile,
-    its product with dtx, the state readout and the state update) over
-    67 TFLOP/s."""
-    nbytes = 4.0 * (nb * nh * s + 2 * nb * nh * s * p + 2 * nb * s * n
+def ssd_bound(nb, nh, s, n, p, chunk, shared_bc):
+    """(bound ms, "bytes" | "operations"): dta, dtx, B, C, y and the
+    terminal state over 3.35 TB/s, against the chunked algorithm's float32
+    multiply-adds over 67 TFLOP/s: the causal half of each score tile C Bᵀ,
+    its product with dtx, the state readout and the state update.  Where B
+    and C are shared by the heads (``shared_bc``), they are read and their
+    score tile computed once per batch."""
+    bc_copies = nb if shared_bc else nb * nh
+    nbytes = 4.0 * (nb * nh * s + 2 * nb * nh * s * p + 2 * bc_copies * s * n
                     + nb * nh * n * p)
-    fma = 0
+    scores = per_head = 0
     for s0 in range(0, s, chunk):
         q = min(chunk, s - s0)
-        fma += q * (q + 1) // 2 * (n + p) + 2 * q * n * p
-    ops = 2.0 * nb * nh * fma
+        scores += q * (q + 1) // 2 * n
+        per_head += q * (q + 1) // 2 * p + 2 * q * n * p
+    ops = 2.0 * (bc_copies * scores + nb * nh * per_head)
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / F32_OPS_PER_S * 1e3
     return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
@@ -733,13 +740,14 @@ def phase_ssd():
                 and torch.allclose(h, h_ref, rtol=1e-4, atol=1e-4)):
             raise AssertionError(f"ssd {label}: max_abs_err {err}")
         iters = 20 if s > 1024 else 100
-        bound, by = ssd_bound(nb, nh, s, n, p, chunk)
+        bound, by = ssd_bound(nb, nh, s, n, p, chunk,
+                              bm.stride(1) == 0 and cm.stride(1) == 0)
         rows.append({
             "shape": label, "bh": nb * nh, "s": s, "n": n, "p": p,
             "chunk": chunk, "max_abs_err": err,
             "y_max_abs": float(y_ref.abs().max()),
             "ms": cuda_ms(call, iters),
-            "device_us": device_us(call, 5, "ssd_kernel"),
+            "device_us": device_us(call, 5, "ssd_kernel", per_call=3),
             "plain_ms": cuda_ms(lambda i: plain(), 5),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
         })
@@ -812,7 +820,9 @@ def phase_flash():
             "dtype": str(dtype)[6:], "causal": True, "max_abs_err": err,
             "median_abs_want": median_want, "tolerance": tol,
             "ms": cuda_ms(call, iters),
-            "device_us": device_us(call, 3, "flash_kernel"),
+            # by type, so that a late event of the other kernel never counts
+            "device_us": device_us(call, 3, "flash_kernel_bf16" if dtype
+                                   == torch.bfloat16 else "flash_kernel_f32"),
             "plain_ms": cuda_ms(lambda i: plain(lambda t: t), 3),
             "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
                 qc, kc, vc, is_causal=True, **kw), iters),
@@ -1056,7 +1066,7 @@ def main() -> int:
         "bound_ms": bs_head["bound_ms"], "bound_by": bs_head["bound_by"],
         "library_ms": bs_head["library_ms"],
     }, {
-        "name": "ssd", "route": "cuda",
+        "name": "ssd", "route": "cuda", "redesigned": 14,
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:82",
         "launches": hy_launches["ssd"],
@@ -1067,7 +1077,7 @@ def main() -> int:
         "bound_ms": ssd_rows[0]["bound_ms"],
         "bound_by": ssd_rows[0]["bound_by"], "library_ms": None,
     }, {
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "route": "cuda", "redesigned": 14,
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
         "launches": hy_launches["flash"],

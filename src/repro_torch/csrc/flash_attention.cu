@@ -5,30 +5,57 @@
 // grid (b*h, q tile, kv tile) whose kv axis runs in order and carries the
 // running max m, sum l and accumulator acc in VMEM scratch; a BlockSpec index
 // map points each query head at its KV head (h / (H / Hkv)), and kv tiles
-// wholly in the causal future are skipped.  Here one block per (q tile,
-// b*h) walks the kv tiles itself, in ascending order up to the causal
-// limit, and keeps m and l in registers (each row's 16 threads hold copies)
-// and acc in registers.  Scores, m, l and acc are float32, products are
-// float32 FMA; the output is acc / max(l, 1e-30) in q's type (float32 or
-// bfloat16).  Masked scores take -1e30 as in the Pallas kernel, and since kv
-// tile 0 always comes first every real row meets an unmasked score before a
-// fully masked tile, so exp(s - m) of a masked score is 0.  Keys beyond Sk
-// (a ragged last tile) take -inf and add nothing.  The causal mask is the
-// Pallas kernel's top-left one, q position >= k position, also when
-// Sq != Sk.
+// wholly in the causal future are skipped.  Both kernels here keep its
+// conventions: masked scores take -1e30, keys beyond Sk take -inf, the
+// causal mask is top-left (q position >= k position, also when Sq != Sk),
+// kv tiles run in ascending order from tile 0 (key 0 sets a real row maximum
+// first, so exp(s - m) of a masked score is 0), and the output is
+// acc / max(l, 1e-30) in q's type.  q, k, v and o are read through
+// (batch, head, position) strides with unit stride along the head dimension,
+// so [B, S, H, d] tensors and their [B, H, S, d] transposes go in uncopied.
 //
-// q, k, v and o are read through (batch, head, position) strides with unit
-// stride along the head dimension, so [B, S, H, d] tensors and their
-// [B, H, S, d] transposes both go in uncopied.  Head dimension d <= 128 at run
-// time (Zamba2-7B's is 112).
+// bfloat16 (the Zamba2-7B serve path): flash_kernel_bf16_wgmma, shaped after
+// FlashAttention-3 for Hopper.  A block of 384 threads owns 128 query rows
+// of one (batch, head): two consumer warpgroups of 64 rows each and one
+// producer warpgroup that lowers its registers with setmaxnreg and from one
+// thread keeps K and V tiles of 128 keys in flight through TMA into a
+// two-stage ring, with mbarriers for full and empty slots; Q is loaded once.
+// The head dimension is taken to 128 in shared memory as two 64-column TMA
+// boxes with the 128-byte swizzle, and TMA's out-of-bounds fill supplies
+// the zero columns d..127 and the zero rows beyond Sq and Sk, so any
+// d <= 128 that is a multiple of 8 runs the one kernel.  S = Q K^T is wgmma
+// with both operands in shared memory and a float32 accumulator; the online
+// softmax stays in float32 registers; O += P V is wgmma with P from registers
+// and V read transposed from shared memory, in two products split at the
+// TMA box (n = 64 and n = 16 KS - 64; KS = ceil(d / 16) is a template
+// argument, so no product is issued under a run-time condition, which makes
+// ptxas serialize them).  P goes in as two bf16 terms, P = P_hi + P_lo, two
+// wgmma into one float32 accumulator: P rounded once to bf16 (as SDPA does)
+// misses the float32 plain version by ~2^-9 relative, the split by ~2^-17,
+// leaving the output's own bf16 rounding.  The softmax takes the row max
+// over the raw scores and each probability as one FFMA and one ex2, which
+// halved its share of the time.  Causal tiles wholly in the future are not
+// loaded, only diagonal and ragged tiles are masked, and the longest rows go
+// first.  The two consumer warpgroups run in step (the S product, softmax,
+// the O product); ping-pong turns between them and issuing O of one tile
+// with S of the next were both slower on an H100 (0.64 ms against 0.50 ms
+// before the lighter softmax), the register pressure of holding S, P and O
+// at once being the likely cause.
+//
+// float32 (the reduced card-against-CPU checks): flash_kernel_f32, one
+// 256-thread block per 64 query rows on the CUDA cores, products as float32
+// FMA from shared memory with 4 x 4 score and 4 x 8 accumulator register
+// tiles per thread.
 //
 // What bounds it on an H100: at Zamba2-7B's long-prompt prefill (B = 1,
 // H = Hkv = 32, S = 4096, d = 112, causal) the two products take ~1.2e11
 // FLOP against ~117 MB of q, k, v and o in bf16: 0.12 ms at the bf16
-// tensor-core peak, 1.8 ms at the float32 CUDA-core rate this first version
-// uses (it computes from shared memory with 4 x 4 score and 4 x 8
-// accumulator register tiles per thread).  Tensor cores (mma / wgmma on bf16
-// tiles), TMA loads and double buffering are later work.
+// tensor-core peak (0.18 ms for the work with the split P), 0.035 ms for the
+// bytes.  The diagonal tiles add ~3 % to the tensor-core work.  Later steps:
+// overlap of the softmax with the tensor cores within the register budget
+// (P through shared memory), a persistent grid; the float32 kernel stays on
+// the CUDA cores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,25 +73,16 @@ struct Strides {
   long long b, h, s;           // elements between batches, heads, positions
 };
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __host__ __device__ inline int smem_floats(int d) {
   return 2 * BQ * (d + 1) + BK * d + BQ * (BK + 1);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k,
-             Strides sk, const T* __restrict__ v, Strides sv,
-             T* __restrict__ o, Strides so, int H, int Hkv, int Sq, int Sk,
-             int D, float scale, int causal) {
+flash_kernel_f32(const float* __restrict__ q, Strides sq,
+                 const float* __restrict__ k, Strides sk,
+                 const float* __restrict__ v, Strides sv,
+                 float* __restrict__ o, Strides so, int H, int Hkv, int Sq,
+                 int Sk, int D, float scale, int causal) {
   extern __shared__ float smem[];
   const int pd = D + 1;
   float* qs = smem;                  // [BQ][pd]
@@ -86,7 +104,7 @@ flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k,
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
-    qs[r * pd + c] = q0 + r < Sq ? load(q + (q0 + r) * sq.s + c) : 0.0f;
+    qs[r * pd + c] = q0 + r < Sq ? q[(q0 + r) * sq.s + c] : 0.0f;
   }
 
   int nkt = (Sk + BK - 1) / BK;
@@ -107,8 +125,8 @@ flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < Sk;
-      ks[r * pd + c] = in ? load(k + (k0 + r) * sk.s + c) : 0.0f;
-      vs[r * D + c] = in ? load(v + (k0 + r) * sv.s + c) : 0.0f;
+      ks[r * pd + c] = in ? k[(k0 + r) * sk.s + c] : 0.0f;
+      vs[r * D + c] = in ? v[(k0 + r) * sv.s + c] : 0.0f;
     }
     __syncthreads();
 
@@ -191,34 +209,539 @@ flash_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) store(o + row * so.s + col, acc[r][c] * inv);
+      if (col < D) o[row * so.s + col] = acc[r][c] * inv;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, Strides sq, const void* k, Strides sk,
-           const void* v, Strides sv, void* o, Strides so, int B, int H,
-           int Hkv, int Sq, int Sk, int D, float scale, int causal,
-           cudaStream_t stream) {
+
+// ------------------------------------------------------------------------- //
+// bfloat16: TMA + wgmma
+// ------------------------------------------------------------------------- //
+
+constexpr int W_BM = 128;                  // query rows of a block
+constexpr int W_BN = 128;                  // keys of a K / V tile
+constexpr int W_CONSUMERS = 2;             // warpgroups of 64 query rows
+constexpr int W_THREADS = 128 * (W_CONSUMERS + 1);
+constexpr int W_BOX = 64;                  // head-dim columns of a TMA box
+constexpr int W_BOX_BYTES = 128 * W_BOX * 2;   // [128 rows][64] bf16
+constexpr int W_TILE_BYTES = 2 * W_BOX_BYTES;  // d padded to 128
+constexpr int W_STAGES = 2;
+constexpr int W_SMEM_BYTES = 1024 + W_TILE_BYTES * (1 + 2 * W_STAGES);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.  A phase that
+// never completes (a refused TMA load) traps after 2^24 polls instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One [128 rows][64 columns] box at coordinates (column, row, head, batch).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (atoms of 8 rows x 128 B,
+// 1024-byte aligned); byte offsets encoded in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B over one k16 step, A [64 x 16] and B [128 x 16] both K-major
+// in shared memory (128-byte swizzle); d is the m64n128 float32 fragment.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B over one k16 step, A [64 x 16] bf16 from registers (the m64k16
+// fragment a0..a3), B [16 x n] MN-major in shared memory (128-byte swizzle,
+// read transposed); d is the m64n<n> float32 fragment, n = 2 x its length.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[24], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0, which
+// no sum of probabilities of order 1 can see.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// P [64 x 128] of one warpgroup, from the m64n128 accumulator layout (thread
+// t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
+// 8 j + 2 (t % 4) (+ 1) of d[4 j .. 4 j + 3]), as two bf16 terms: each
+// register packs two neighbouring columns, which is the m64k16 A fragment
+// of key step kk in registers 4 kk .. 4 kk + 3.
+__device__ __forceinline__ void split_p(const float (&p)[64],
+                                        uint32_t (&hi)[32],
+                                        uint32_t (&lo)[32]) {
+#pragma unroll
+  for (int t = 0; t < 32; ++t) {
+    hi[t] = bf16x2_bits(p[2 * t], p[2 * t + 1]);
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[t]);
+    lo[t] = bf16x2_bits(p[2 * t] - __low2float(h),
+                        p[2 * t + 1] - __high2float(h));
+  }
+}
+
+// KS = ceil(d / 16) k16 steps over the head dimension; the output columns
+// split at the TMA box into N1 = min(16 KS, 64) and N2 = 16 KS - N1.
+template <int KS>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o, Strides so, int H,
+                        int Hkv, int Sq, int Sk, int D, float scale_log2,
+                        float masked_raw, int causal) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * W_STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t q_full = smem_u32(&bars[0]);
+  auto sk = [&](int st) { return base + W_TILE_BYTES * (1 + st); };
+  auto sv = [&](int st) { return base + W_TILE_BYTES * (1 + W_STAGES + st); };
+  auto full = [&](int st) { return smem_u32(&bars[1 + st]); };
+  auto empty = [&](int st) { return smem_u32(&bars[1 + W_STAGES + st]); };
+
+  const int nqt = (Sq + W_BM - 1) / W_BM;
+  const int q0 = (nqt - 1 - blockIdx.x) * W_BM;   // longest causal rows first
+  const int bh = blockIdx.y;
+  const int bi = bh / H, hi = bh % H, hk = hi / (H / Hkv);
+  // the kv tile count lives in shared memory, read once per tile: at
+  // d = 128 a register held across the loop would spill
+  __shared__ int tiles;
+  constexpr int N1 = KS * 16 < W_BOX ? KS * 16 : W_BOX;
+  constexpr int N2 = KS * 16 - N1;
+  constexpr int boxes = N2 > 0 ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+    int nkt = (Sk + W_BN - 1) / W_BN;
+    if (causal) nkt = min(nkt, (min(q0 + W_BM, Sq) - 1) / W_BN + 1);
+    tiles = nkt;
+    mbar_init(q_full, 1);
+    for (int st = 0; st < W_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4 * W_CONSUMERS);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * W_CONSUMERS) {
+      mbar_expect_tx(q_full, boxes * W_BOX_BYTES);
+      for (int bx = 0; bx < boxes; ++bx)
+        tma_load(sq + bx * W_BOX_BYTES, &tq, q_full, bx * W_BOX, q0, hi, bi);
+      for (int kt = 0; kt < tiles; ++kt) {
+        const int st = kt % W_STAGES, fill = kt / W_STAGES;
+        if (fill > 0) mbar_wait(empty(st), (fill - 1) & 1);
+        mbar_expect_tx(full(st), 2 * boxes * W_BOX_BYTES);
+        for (int bx = 0; bx < boxes; ++bx) {
+          tma_load(sk(st) + bx * W_BOX_BYTES, &tk, full(st), bx * W_BOX,
+                   kt * W_BN, hk, bi);
+          tma_load(sv(st) + bx * W_BOX_BYTES, &tv, full(st), bx * W_BOX,
+                   kt * W_BN, hk, bi);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;   // and row0 + 8
+    const int col0 = 2 * (lane % 4);
+    float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f};
+    float o0[N1 / 2], o1[N2 > 0 ? N2 / 2 : 1];   // columns 0.. and 64..
+#pragma unroll
+    for (int i = 0; i < N1 / 2; ++i) o0[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N2 / 2; ++i) o1[i] = 0.0f;
+
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < tiles; ++kt) {
+      const int st = kt % W_STAGES, fill = kt / W_STAGES;
+      const int k0 = kt * W_BN;
+      mbar_wait(full(st), fill & 1);
+
+      // S = Q K^T over the head dimension in k16 steps
+      float s[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t off = (ks / 4) * W_BOX_BYTES + (ks % 4) * 32;
+        wgmma_ss_n128(s, smem_desc(sq + 64 * wg * 128 + off, 16, 1024),
+                      smem_desc(sk(st) + off, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // online softmax in the log2 domain, float32: the row max is taken
+      // over the raw scores and p = 2^(s * scale_log2 - m) is one FFMA and
+      // one ex2; a masked raw score is masked_raw = -1e30 / scale_log2
+      // (-1e30 once scaled, as in the Pallas kernel; a kernel argument, so
+      // it holds no register), a key beyond Sk -inf
+      const bool masked = k0 + W_BN > Sk ||
+                          (causal && k0 + W_BN - 1 > q0 + 64 * wg);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kpos = k0 + 8 * j + col0 + e;
+              float& v = s[4 * j + 2 * h + e];
+              if (kpos >= Sk)
+                v = -INFINITY;
+              else if (causal && row0 + 8 * h < kpos)
+                v = masked_raw;
+            }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mx[h] = fmaxf(mx[h], fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      float alpha[2], neg_m[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+        alpha[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+        neg_m[h] = -m_new;
+      }
+      float rs[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = s[4 * j + 2 * h + e];
+            v = ex2(fmaf(v, scale_log2, neg_m[h]));
+            rs[h][e] += v;
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + (rs[h][0] + rs[h][1]);
+#pragma unroll
+      for (int i = 0; i < N1 / 2; ++i) o0[i] *= alpha[(i / 2) % 2];
+#pragma unroll
+      for (int i = 0; i < N2 / 2; ++i) o1[i] *= alpha[(i / 2) % 2];
+      uint32_t ph[32], pl[32];
+      split_p(s, ph, pl);
+
+      // O += P_hi V + P_lo V over the keys in k16 steps
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t v0 = sv(st) + kk * 16 * 128;
+        const uint64_t d0 = smem_desc(v0, 1024, 1024);
+        wgmma_rs(o0, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
+                 ph[4 * kk + 3], d0);
+        wgmma_rs(o0, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                 pl[4 * kk + 3], d0);
+        if constexpr (N2 > 0) {
+          const uint64_t d1 = smem_desc(v0 + W_BOX_BYTES, 1024, 1024);
+          wgmma_rs(o1, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
+                   ph[4 * kk + 3], d1);
+          wgmma_rs(o1, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                   pl[4 * kk + 3], d1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o0);
+      if constexpr (N2 > 0) fence_regs(o1);
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    o += static_cast<long long>(bi) * so.b + static_cast<long long>(hi) * so.h;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int row = row0 + 8 * h;
+      if (row >= Sq) continue;
+      const float inv = 1.0f / fmaxf(l[h], 1e-30f);
+      __nv_bfloat16* dst = o + static_cast<long long>(row) * so.s;
+#pragma unroll
+      for (int j = 0; j < N1 / 8; ++j) {
+        const int col = 8 * j + col0;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(o0[4 * j + 2 * h] * inv,
+                                    o0[4 * j + 2 * h + 1] * inv);
+      }
+#pragma unroll
+      for (int j = 0; j < N2 / 8; ++j) {
+        const int col = W_BOX + 8 * j + col0;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(o1[4 * j + 2 * h] * inv,
+                                    o1[4 * j + 2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library links against no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (d, position, head, batch) over bf16 with boxes of 64 columns x
+// 128 positions, 128-byte swizzle and zero fill out of bounds.  A stride of
+// an axis of extent 1 is never used; it is replaced by the packed one.
+bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int D, int S,
+                int heads, int B) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const long long given[3] = {st.s, st.h, st.b};
+  cuuint64_t strides[3];
+  cuuint64_t packed = 2ull * D;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? packed : 2ull * given[i];
+    packed = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {W_BOX, 128, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const void* q, Strides sq, const void* k, Strides sk,
+                const void* v, Strides sv, void* o, Strides so, int B, int H,
+                int Hkv, int Sq, int Sk, int D, float scale, int causal,
+                cudaStream_t stream) {
+  // what TMA takes: 16-byte aligned bases and byte strides, d % 8 == 0
+  if (D % 8 != 0 || B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, sq, D, Sq, H, B) ||
+      !encode_map(&tk, k, sk, D, Sk, Hkv, B) ||
+      !encode_map(&tv, v, sv, D, Sk, Hkv, B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static void (*const kernels[8])(CUtensorMap, CUtensorMap, CUtensorMap,
+                                  __nv_bfloat16*, Strides, int, int, int,
+                                  int, int, float, float, int) = {
+      flash_kernel_bf16_wgmma<1>, flash_kernel_bf16_wgmma<2>,
+      flash_kernel_bf16_wgmma<3>, flash_kernel_bf16_wgmma<4>,
+      flash_kernel_bf16_wgmma<5>, flash_kernel_bf16_wgmma<6>,
+      flash_kernel_bf16_wgmma<7>, flash_kernel_bf16_wgmma<8>};
+  const auto kernel = kernels[(D + 15) / 16 - 1];
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const dim3 grid((Sq + W_BM - 1) / W_BM, B * H);
+  kernel<<<grid, W_THREADS, W_SMEM_BYTES, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, H, Hkv, Sq, Sk, D,
+      scale_log2, NEG_BIG / scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* q, Strides sq, const void* k, Strides sk,
+               const void* v, Strides sv, void* o, Strides so, int B, int H,
+               int Hkv, int Sq, int Sk, int D, float scale, int causal,
+               cudaStream_t stream) {
   const int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_kernel<T><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), sq, static_cast<const T*>(k), sk,
-      static_cast<const T*>(v), sv, static_cast<T*>(o), so, H, Hkv, Sq, Sk,
-      D, scale, causal);
+  flash_kernel_f32<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), sq, static_cast<const float*>(k), sk,
+      static_cast<const float*>(v), sv, static_cast<float*>(o), so, H, Hkv,
+      Sq, Sk, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-// dtype 0: float32 q, k, v, o; dtype 1: bfloat16.  q / o are indexed
-// [batch, head, position, d] and k / v [batch, kv head, position, d] through
-// the three strides given for each (in elements); d has unit stride.
+// Launches on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a call the kernel of that type does not take.
+// dtype 0: float32 q, k, v, o (flash_kernel_f32); dtype 1: bfloat16
+// (flash_kernel_bf16_wgmma: d % 8 == 0, 16-byte aligned q, k, v and byte
+// strides).  q / o are indexed [batch, head, position, d] and k / v
+// [batch, kv head, position, d] through the three strides given for each (in
+// elements); d has unit stride.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, long long sq_b, long long sq_h, long long sq_s,
     const void* k, long long sk_b, long long sk_h, long long sk_s,
@@ -232,8 +755,8 @@ extern "C" int flash_attention_launch(
       v_s{sv_b, sv_h, sv_s}, o_s{so_b, so_h, so_s};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, q_s, k, k_s, v, v_s, o, o_s, B, H, Hkv, Sq, Sk,
-                         D, scale, causal, s);
-  return launch<__nv_bfloat16>(q, q_s, k, k_s, v, v_s, o, o_s, B, H, Hkv, Sq,
-                               Sk, D, scale, causal, s);
+    return launch_f32(q, q_s, k, k_s, v, v_s, o, o_s, B, H, Hkv, Sq, Sk, D,
+                      scale, causal, s);
+  return launch_bf16(q, q_s, k, k_s, v, v_s, o, o_s, B, H, Hkv, Sq, Sk, D,
+                     scale, causal, s);
 }

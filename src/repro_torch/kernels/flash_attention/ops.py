@@ -5,12 +5,14 @@ layout and backend selection.
 CUDA tensors and runs the plain version (``ref.py``) for CPU tensors;
 ``"cuda"`` and ``"reference"`` force one side and raise for a tensor on the
 other device: nothing falls back.  ``LAUNCHES`` counts kernel launches by
-type, so a run can show that its path went through the kernel.
+type, so a run can show that its path went through the kernel.  bfloat16
+runs the tensor-core kernel, which loads q, k and v by TMA; a bf16 call
+whose layout TMA cannot read (``tma_layout_error``) raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -25,6 +27,25 @@ MAX_HEAD_DIM = 128
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def tma_layout_error(shape, strides, data_ptr: int,
+                     elem_size: int = 2) -> Optional[str]:
+    """Why the bf16 kernel's TMA loads cannot read a ``[B, H, S, d]``
+    operand of this layout, or None if they can: the base must be 16-byte
+    aligned, and the byte strides of batch, head and position (axes of
+    extent 1 excepted: the kernel never steps along them) and d's row
+    length multiples of 16, so d % 8 == 0 in bf16."""
+    if data_ptr % 16:
+        return f"base address {data_ptr:#x} is not 16-byte aligned"
+    if shape[-1] * elem_size % 16:
+        return (f"d={shape[-1]}: rows of {shape[-1] * elem_size} bytes are "
+                "not a multiple of 16")
+    for axis, name in enumerate(("batch", "head", "position")):
+        if shape[axis] > 1 and strides[axis] * elem_size % 16:
+            return (f"{name} stride of {strides[axis] * elem_size} bytes is "
+                    "not a multiple of 16")
+    return None
 
 
 def _launch(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
@@ -43,6 +64,12 @@ def _launch(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernel takes d <= {MAX_HEAD_DIM}; "
                          f"got {d}")
+    if q.dtype == torch.bfloat16:
+        for label, t in (("q", q), ("k", k), ("v", v)):
+            why = tma_layout_error(t.shape, t.stride(), t.data_ptr())
+            if why is not None:
+                raise ValueError(f"the bf16 flash kernel loads {label} by "
+                                 f"TMA, which cannot read it: {why}")
     # o in [B, S, H, d] memory order: the attention layer reads it that way
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)

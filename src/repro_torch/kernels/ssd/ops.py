@@ -5,8 +5,9 @@ and runs the chunked plain version (``ref.py``) for CPU tensors;
 ``"naive"`` runs the per-step recurrence and ``"reference"`` the chunked
 plain version, both on CPU tensors only; ``"cuda"`` forces the kernel.
 Nothing falls back: a CUDA tensor goes through the kernel or raises.
-``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernel.
+``LAUNCHES`` counts calls that launched the kernel (one per call, although
+a call issues three CUDA kernels: chunk states, the pass over the
+chunks, the scan), so a run can show that its path went through it.
 """
 from __future__ import annotations
 
@@ -41,6 +42,16 @@ def _resolve(backend: str, t: torch.Tensor) -> str:
     return backend
 
 
+def scratch_sizes(nb: int, nh: int, s: int, n: int, p: int,
+                  chunk: int) -> tuple:
+    """Float32 elements of the kernel's two scratch arrays, which the
+    wrapper allocates as one: each chunk's state ``[B, H, nc, N, P]``
+    (overwritten with the state entering the chunk) and its total log decay
+    ``[B, H, nc]``."""
+    nc = -(-s // chunk)
+    return nb * nh * nc * n * p, nb * nh * nc
+
+
 def _launch(dta, dtx, b, c, chunk: int, return_state: bool):
     """The kernel over 4-D [batch, heads, S, ...] views; returns
     (y [batch, heads, S, P], h_final [batch, heads, N, P] or None)."""
@@ -68,16 +79,22 @@ def _launch(dta, dtx, b, c, chunk: int, return_state: bool):
          if return_state else None)
     if s == 0:
         return y, (h.zero_() if h is not None else None)
+    n_states, n_decay = scratch_sizes(nb, nh, s, n, p, chunk)
+    scratch = torch.empty(n_states + n_decay, dtype=torch.float32,
+                          device=dtx.device)
+    states = scratch.data_ptr()
+    decay = states + 4 * n_states
     fn = library("ssd").ssd_launch
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [vp, ll, ll, ll] * 5 + [vp] + [ci] * 6 + [vp]
+        fn.argtypes = [vp, ll, ll, ll] * 5 + [vp] * 3 + [ci] * 6 + [vp]
         fn.restype = ci
     args = []
     for t in (dta, dtx, b, c, y):
         args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
-    rc = fn(*args, h.data_ptr() if h is not None else None, nb, nh, s, p, n,
-            chunk, torch.cuda.current_stream(dtx.device).cuda_stream)
+    rc = fn(*args, h.data_ptr() if h is not None else None, states, decay,
+            nb, nh, s, p, n, chunk,
+            torch.cuda.current_stream(dtx.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {rc} "
                            f"(B={nb} H={nh} S={s} P={p} N={n} "

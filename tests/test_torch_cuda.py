@@ -228,7 +228,10 @@ def _ssd_naive(dta, dtx, b, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb,nh,s,n,p,chunk", [
     (1, 3, 128, 16, 32, 32), (2, 5, 100, 40, 48, 32), (1, 112, 23, 64, 64, 23),
-    (1, 4, 300, 128, 64, 128), (2, 2, 7, 8, 8, 128), (1, 2, 64, 16, 16, 1)])
+    (1, 4, 300, 128, 64, 128), (2, 2, 7, 8, 8, 128), (1, 2, 64, 16, 16, 1),
+    # long prompts over many chunks, the last one ragged, N = 64 and 128
+    (1, 3, 4096, 64, 64, 128), (1, 2, 4000, 128, 64, 128),
+    (2, 2, 1001, 128, 64, 96)])
 @pytest.mark.parametrize("shared", [True, False])
 def test_ssd_kernel_matches_recurrence(card, nb, nh, s, n, p, chunk, shared):
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -290,8 +293,18 @@ def test_ssd_kernel_rejections(card):
 
 # --------------------------------------------------------------------------- #
 # flash attention: against the plain version on the card; float32 at
-# rtol 2e-4 / atol 2e-5, bfloat16 at 2e-2 (outputs rounded to bf16)
+# rtol 2e-4 / atol 2e-5, bfloat16 at 2e-2 (outputs rounded to bf16), and
+# long bf16 prompts against the float32 plain version at rtol 8e-3 /
+# atol 2e-5 (the output's own bf16 rounding: P enters the tensor cores as
+# two bf16 terms)
 # --------------------------------------------------------------------------- #
+
+def _bshd_views(b, h, hkv, sq, sk, d, dtype, seed, device):
+    """q, k, v as [B, S, H, d] memory handed over as [B, H, S, d] views."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (b, s, heads, d)).astype(np.float32)).to(device, dtype).transpose(1, 2)
+        for s, heads in ((sq, h), (sk, hkv), (sk, hkv)))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
@@ -305,11 +318,8 @@ def test_flash_kernel_matches_plain_version(card, b, h, hkv, sq, sk, d,
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    rng = np.random.default_rng(b + h + sq + sk + d)
-    # [B, S, H, d] memory handed over as [B, H, S, d] views
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, heads, d)).astype(
-        np.float32)).to(card, dtype).transpose(1, 2)
-        for s, heads in ((sq, h), (sk, hkv), (sk, hkv)))
+    q, k, v = _bshd_views(b, h, hkv, sq, sk, d, dtype, b + h + sq + sk + d,
+                          card)
     name = str(dtype).split(".")[1]
     before = fa.LAUNCHES[name]
     got = fa.flash_attention(q, k, v, causal=causal)
@@ -343,3 +353,44 @@ def test_flash_kernel_rejections(card):
         fa.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="reference"):
         fa.flash_attention(q, q, q, backend="reference")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [112, 64])
+def test_flash_bf16_long_causal_against_float32(card, d):
+    """A long causal GQA prefill in bf16 held to the float32 plain version
+    on the same values at rtol 8e-3 / atol 2e-5: P rounded once to bf16
+    would put outputs outside it."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _bshd_views(1, 32, 8, 2048, 2048, d, torch.bfloat16, d, card)
+    before = fa.LAUNCHES["bfloat16"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["bfloat16"] == before + 1
+    want = attention_ref(*(t.float().reshape(-1, 2048, d) for t in (q, k, v)),
+                         q_heads=32, kv_heads=8).reshape(1, 32, 2048, d)
+    torch.testing.assert_close(got.float(), want, rtol=8e-3, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_refuses_what_tma_cannot_load(card):
+    """The bf16 kernel loads q, k, v by TMA: a view one element into its
+    storage (a base off 16 bytes) or d % 8 != 0 raises, and nothing
+    launches."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    base = torch.randn((1, 64, 4, 128), device=card).to(torch.bfloat16)
+    good = base[..., :112].transpose(1, 2)
+    shifted = base[..., 1:113].transpose(1, 2)
+    cut = base[..., :100].transpose(1, 2)
+    before = fa.LAUNCHES["bfloat16"]
+    with pytest.raises(ValueError, match="TMA.*aligned"):
+        fa.flash_attention(shifted, good, good)
+    with pytest.raises(ValueError, match="TMA.*d=100"):
+        fa.flash_attention(cut, cut, cut)
+    assert fa.LAUNCHES["bfloat16"] == before
+    fa.flash_attention(good, good, good)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["bfloat16"] == before + 1

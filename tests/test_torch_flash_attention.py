@@ -99,3 +99,41 @@ def test_wrapper_refuses_bad_calls():
     with pytest.raises(ValueError):
         ops.flash_attention(q, k[:, :1].expand(1, 3, 16, 8), v)   # 4 % 3
     assert ops.LAUNCHES == {"float32": 0, "bfloat16": 0}
+
+
+@pytest.mark.parametrize("shape,strides,ptr,why", [
+    # the attention layer's call: [B, S, H, d] memory as a [B, H, S, d] view
+    ((1, 32, 4096, 112), (4096 * 32 * 112, 112, 32 * 112, 1), 0, None),
+    ((2, 8, 64, 64), (8 * 64 * 64, 64 * 64, 64, 1), 4096, None),
+    ((1, 4, 30, 100), (12000, 100, 400, 1), 0, "d=100"),
+    ((1, 4, 30, 112), (3360, 112, 452, 1), 0, "position stride"),
+    ((1, 3, 30, 112), (13440, 113, 336, 1), 0, "head stride"),
+    ((2, 4, 30, 112), (13441, 112 * 30, 112, 1), 0, "batch stride"),
+    # an axis of extent 1 is never stepped along: its stride is free
+    ((1, 1, 30, 112), (13441, 7, 112, 1), 0, None),
+    ((1, 4, 30, 112), (13440, 3360, 112, 1), 8, "16-byte aligned"),
+])
+def test_tma_layout_rules(shape, strides, ptr, why):
+    """The bf16 kernel's TMA operand rules: 16-byte aligned base, rows and
+    byte strides that are multiples of 16 (d % 8 == 0 in bf16)."""
+    got = ops.tma_layout_error(shape, strides, ptr)
+    if why is None:
+        assert got is None
+    else:
+        assert why in got
+
+
+def test_tma_layout_rules_on_tensor_views():
+    """Views as torch makes them: the layer's transposed [B, S, H, d]
+    tensors pass; a head dimension cut to 100 or a view one element into
+    its storage does not."""
+    base = torch.zeros((2, 30, 4, 128), dtype=torch.bfloat16)
+    good = base[..., :112].transpose(1, 2)
+    assert ops.tma_layout_error(good.shape, good.stride(),
+                                good.data_ptr()) is None
+    cut = base[..., :100].transpose(1, 2)
+    assert "d=100" in ops.tma_layout_error(cut.shape, cut.stride(),
+                                           cut.data_ptr())
+    shifted = base[..., 1:113].transpose(1, 2)
+    assert "aligned" in ops.tma_layout_error(
+        shifted.shape, shifted.stride(), shifted.data_ptr())

@@ -119,3 +119,18 @@ def test_wrapper_refuses_bad_calls():
     with pytest.raises(ValueError, match="b "):
         ops.ssd(td, tx, tb[:, :16], tc)
     assert ops.LAUNCHES == {"float32": 0}      # plain versions never count
+
+
+@pytest.mark.parametrize("nb,nh,s,n,p,chunk,want", [
+    # Zamba2-7B's 4096-token prefill: 58.7 MB of chunk states
+    (1, 112, 4096, 64, 64, 128, (112 * 32 * 64 * 64, 112 * 32)),
+    # Mamba2-130m at S = 1024: 6.3 MB
+    (1, 24, 1024, 128, 64, 128, (24 * 8 * 128 * 64, 24 * 8)),
+    # a ragged last chunk counts as a chunk
+    (2, 3, 100, 8, 16, 32, (2 * 3 * 4 * 8 * 16, 2 * 3 * 4)),
+    # one chunk (a short prompt) still has its slot
+    (1, 112, 23, 64, 64, 23, (112 * 64 * 64, 112)),
+    (2, 2, 7, 8, 8, 128, (2 * 2 * 8 * 8, 2 * 2)),
+])
+def test_scratch_sizes(nb, nh, s, n, p, chunk, want):
+    assert ops.scratch_sizes(nb, nh, s, n, p, chunk) == want
