@@ -9,11 +9,16 @@ Phases, each printing one JSON line:
              (sm_90a), all at once.
 2. kernel  — the bitlinear kernel against its plain PyTorch version at the
              serve path's shapes (decode M=1 and prefill M=24; the four
-             projection families' per-Legion slices; bits 2/4/8):
-             max_abs_err must be 0 (exact int32).  Times the kernel, the
-             plain version and, where M > 16, torch._int_mm on the unpacked
-             weights (a yardstick only); weights rotate through copies that
-             exceed the 50 MB L2, as the serve path reads each tile once.
+             projection families' per-Legion slices; bits 2/4/8), then as
+             the Machine launches it, once per stage run: every projection
+             stage of BitNet-1.58B at M=1 and 24 (a grouped launch over the
+             plan_stage(dlegion(8)) assignments) and the two attention
+             stages at contexts 16 and 256 (bits 8): max_abs_err must be 0
+             (exact int32) and a stage must take one launch.  Times the
+             kernel, the plain version and, where M > 16, torch._int_mm on
+             the unpacked weights (a yardstick only); weights rotate
+             through copies that exceed the 50 MB L2 (at most 32 copies of
+             a stage), as the serve path reads each tile once.
 3. model   — a reduced float32 model without quantization on the card
              against the same model on the CPU (prefill + decode logits).
 4. serve   — full BitNet-1.58B (32 layers, full width, bf16, random weights
@@ -22,7 +27,8 @@ Phases, each printing one JSON line:
              counts taken around the run; every request must finish and
              backend.cross_validate must be ok with worst error 0.
 5. window  — one decode step (m=1, context 16) at window granularity:
-             outputs and tallies must equal kernel granularity.
+             outputs and tallies must equal kernel granularity, which must
+             launch the bitlinear kernel once per integer stage.
 6. block_sparse — the block-sparse (ZTB) kernel against its plain version
              at the +ZTB path's shapes (BitNet-1.58B's qkv_proj and
              out_proj per-Legion slices at S=512, the granite-moe expert
@@ -81,6 +87,7 @@ of the repository, the script exits non-zero before printing a result.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,17 +123,27 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_us(fn, iters: int, kernel: str, per_call: int = 1,
+def kernel_name(key: str) -> str:
+    """The function name in a profiler kernel key: return type, namespaces,
+    template arguments and parameters dropped."""
+    head = key.replace("(anonymous namespace)::", "")
+    head = re.split(r"[<(]", head, maxsplit=1)[0].split()
+    return head[-1].split("::")[-1] if head else ""
+
+
+def device_us(fn, iters: int, kernels, per_call: int = 1,
               attempts: int = 2):
-    """Device time per call of the kernels whose names hold ``kernel``:
-    every matching event of ``iters`` calls summed, over ``iters`` (a call
-    may issue several kernels, ``per_call``, as the SSD scan's three), from
-    torch.profiler's CUDA activity.  A trace that lacks any of the
-    ``iters * per_call`` events is taken again (``attempts`` in all), then
-    None."""
+    """Device time per call of the kernels named ``kernels`` (one function
+    name or several, matched exactly, so that no other kernel whose name
+    holds the same letters counts): every matching event of ``iters``
+    calls summed, over ``iters`` (a call may launch several kernels,
+    ``per_call``, as the SSD scan's three), from torch.profiler's CUDA
+    activity.  A trace that lacks any of the ``iters * per_call`` events is
+    taken again (``attempts`` in all), then None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = {kernels} if isinstance(kernels, str) else set(kernels)
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -135,7 +152,7 @@ def device_us(fn, iters: int, kernel: str, per_call: int = 1,
             torch.cuda.synchronize()
         total = count = 0
         for evt in prof.key_averages():
-            if kernel in evt.key:
+            if kernel_name(evt.key) in names:
                 total += evt.device_time_total
                 count += evt.count
         if count == iters * per_call:
@@ -156,13 +173,11 @@ def phase_build():
           "seconds": seconds, "ptxas": ptxas})
 
 
-def serve_shapes():
-    """(family, K, per-Legion N slice) of the four projection families at
-    full width, from the scheduler's own plans on dlegion(8)."""
+def serve_workloads(m: int):
+    """BitNet-1.58B's four projection families at full width and ``m``
+    rows, as the Legion serve backend builds them (2-bit weights)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import dlegion
     from repro_torch.core import workloads as W
-    from repro_torch.core.scheduler import plan_stage
 
     cfg = get_config("bitnet-1.58b")
     hd = cfg.head_dim_
@@ -173,14 +188,135 @@ def serve_shapes():
         (W.MLP_UP, cfg.d_model, cfg.d_ff, 2, W.N_PARTITION),
         (W.MLP_DOWN, cfg.d_ff, cfg.d_model, 1, W.N_PARTITION),
     )
+    return [W.GEMMWorkload(stage=stage, m=m, k=k, n=n, weight_bits=2,
+                           count=count, shared_input=count > 1,
+                           mapping=mapping)
+            for stage, k, n, count, mapping in fams]
+
+
+def attention_workloads(context: int):
+    """BitNet-1.58B's two act-to-act stages of one decode row at a KV
+    context (bits 8)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import workloads as W
+
+    cfg = get_config("bitnet-1.58b")
+    return W.decode_attention_workloads(
+        heads=cfg.n_heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim_,
+        context=context, m=1)
+
+
+def serve_shapes():
+    """(family, K, per-Legion N slice) of the four projection families at
+    full width, from the scheduler's own plans on dlegion(8)."""
+    from repro_torch.core import dlegion
+    from repro_torch.core.scheduler import plan_stage
+
     out = []
-    for stage, k, n, count, mapping in fams:
-        wl = W.GEMMWorkload(stage=stage, m=1, k=k, n=n, weight_bits=2,
-                            count=count, shared_input=count > 1,
-                            mapping=mapping)
+    for wl in serve_workloads(1):
         plan = plan_stage(dlegion(8), wl)
-        out.append((stage, k, max(a.n_hi - a.n_lo for a in plan.assignments)))
+        out.append((wl.stage, wl.k,
+                    max(a.n_hi - a.n_lo for a in plan.assignments)))
     return out
+
+
+def stage_group(wl, seed: int, copies: int):
+    """One Legion stage run as the Machine hands it to the grouped kernel:
+    the plan of ``wl`` on dlegion(8) as (instance, n_lo, n_hi) slices,
+    random int8 activations (shared or per instance), ``copies`` copies of
+    random weights (packed at bits 2 and 4; several, so that timed calls
+    can read them cold) and an int32 accumulator, on the card.  Returns
+    (x, weight copies, accumulator, slices, bytes the stage must move)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dlegion
+    from repro_torch.core.scheduler import plan_stage
+    from repro_torch.quant.packing import pack_2bit_kmajor, pack_4bit_kmajor
+
+    bits = wl.weight_bits
+    pack = {2: pack_2bit_kmajor, 4: pack_4bit_kmajor, 8: lambda w: w}[bits]
+    lohi = {2: (-1, 2), 4: (-8, 8), 8: (-8, 9)}[bits]
+    plan = plan_stage(dlegion(8), wl)
+    rng = np.random.default_rng(seed)
+    xshape = (wl.m, wl.k) if wl.shared_input else (wl.count, wl.m, wl.k)
+    x = torch.from_numpy(rng.integers(-128, 128, size=xshape)
+                         .astype(np.int8)).cuda()
+    w = torch.from_numpy(rng.integers(*lohi, size=(wl.count, wl.k, wl.n))
+                         .astype(np.int8)).cuda()
+    packed = [torch.stack([pack(wi) for wi in w])]
+    packed += [packed[0].clone() for _ in range(copies - 1)]
+    acc = torch.zeros((wl.count, wl.m, wl.n), dtype=torch.int32,
+                      device=x.device)
+    slices = [(a.instance, a.n_lo, a.n_hi) for a in plan.assignments]
+    nbytes = (x.numel() + packed[0].numel() * packed[0].element_size()
+              + acc.numel() * 4)
+    return x, packed, acc, slices, nbytes
+
+
+def grouped_rows():
+    """The grouped kernel on whole stage runs: every projection stage of
+    BitNet-1.58B at decode (m = 1) and prefill (m = 24) and the two
+    attention stages at contexts 16 and 256, each one launch against its
+    plain version (max_abs_err must be 0), timed, with its bound."""
+    import torch
+
+    from repro_torch.kernels.bitlinear import ops
+    from repro_torch.kernels.bitlinear.ref import (
+        grouped_tile_gemm_ref, unpack_weights,
+    )
+
+    stages = [(wl, None) for m in (1, 24) for wl in serve_workloads(m)]
+    stages += [(wl, t) for t in (16, 256) for wl in attention_workloads(t)]
+    rows = []
+    for i, (wl, context) in enumerate(stages):
+        wbytes = wl.count * wl.k * wl.n * wl.weight_bits // 8
+        copies = min(max(L2_FLUSH_BYTES // wbytes, 1), 32)
+        x, packed, acc, slices, nbytes = stage_group(wl, i, copies)
+        bits = wl.weight_bits
+        before = ops.LAUNCHES[bits]
+        ops.grouped_tile_gemm(x, packed[0], acc, slices, bits=bits)
+        launches = ops.LAUNCHES[bits] - before
+        plain = torch.zeros_like(acc)
+        grouped_tile_gemm_ref(x, packed[0], plain, slices, bits=bits)
+        torch.cuda.synchronize()
+        err = int((acc - plain).abs().max())
+        if err or launches != 1:
+            raise AssertionError(f"grouped {wl.stage} m={wl.m}: "
+                                 f"max_abs_err {err}, {launches} launches")
+        call = lambda j: ops.grouped_tile_gemm(       # noqa: E731
+            x, packed[j % len(packed)], acc, slices, bits=bits)
+        ops_ms = 2.0 * wl.count * wl.m * wl.k * wl.n / INT8_OPS_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        library_ms = None
+        if wl.m > 16 and (wl.shared_input or wl.count == 1):
+            # one _int_mm on the unpacked weights, the instances side by
+            # side along N (they share x); rotated copies, held to the plain
+            wu = torch.cat([unpack_weights(w, bits) for w in packed[0]], 1)
+            ucopies = [wu] + [wu.clone() for _ in range(
+                min(max(L2_FLUSH_BYTES // wu.numel(), 1), 32) - 1)]
+            x2 = x.reshape(wl.m, wl.k)
+            lib = torch._int_mm(x2, wu).reshape(wl.m, wl.count, wl.n)
+            if not torch.equal(lib.transpose(0, 1), plain):
+                raise AssertionError(f"_int_mm {wl.stage} m={wl.m} differs")
+            library_ms = cuda_ms(lambda j: torch._int_mm(
+                x2, ucopies[j % len(ucopies)]), 50)
+            del wu, ucopies, lib
+        rows.append({
+            "stage": wl.stage, "grouped": True, "m": wl.m, "k": wl.k,
+            "n": wl.n, "count": wl.count, "context": context, "bits": bits,
+            "items": len(slices), "bytes": nbytes,
+            "weight_copies": len(packed), "max_abs_err": err,
+            "ms": cuda_ms(call, 200),
+            "device_us": device_us(call, 50, "bitlinear_kernel"),
+            "plain_ms": cuda_ms(lambda j: grouped_tile_gemm_ref(
+                x, packed[j % len(packed)], plain, slices, bits=bits), 5),
+            "library_ms": library_ms,
+            "bound_ms": max(byte_ms, ops_ms),
+            "bound_by": "bytes" if byte_ms >= ops_ms else "operations",
+        })
+        del x, packed, acc, plain
+    return rows
 
 
 def phase_kernel():
@@ -242,6 +378,7 @@ def phase_kernel():
                     "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 })
                 del copies
+    rows += grouped_rows()
     for r in rows:
         emit(dict(phase="kernel", **r))
     return rows
@@ -379,7 +516,12 @@ def _leaves(tree):
 
 
 def phase_window(cfg, params, kernel_backend):
+    """One decode step (m = 1, context 16) at both granularities: equal
+    outputs and tallies; at kernel granularity one bitlinear launch per
+    integer stage of the step (every stage of a BitNet step is integer and
+    none is +ZTB)."""
     import numpy as np
+    import torch
 
     from repro_torch.core import dlegion
     from repro_torch.kernels.bitlinear import ops
@@ -388,14 +530,19 @@ def phase_window(cfg, params, kernel_backend):
     per_step = {}
     tallies = {}
     outputs = {}
+    seconds = {}
     for gran in ("kernel", "window"):
         backend = LegionServeBackend(dlegion(8), cfg, params,
                                      granularity=gran)
         ops.reset_launches()
         tallies[gran] = dataclasses.asdict(backend.step_tally(1, (16,)))
         per_step[gran] = sum(ops.LAUNCHES.values())
-        outputs[gran] = backend.machine.run(backend.step_program(1, (16,)),
-                                            validate=False).outputs
+        prog = backend.step_program(1, (16,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs[gran] = backend.machine.run(prog, validate=False).outputs
+        torch.cuda.synchronize()
+        seconds[gran] = time.perf_counter() - t0
     same_tally = tallies["window"] == tallies["kernel"] == \
         dataclasses.asdict(kernel_backend.step_tally(1, (16,)))
     same_out = outputs["kernel"].keys() == outputs["window"].keys() and all(
@@ -404,8 +551,14 @@ def phase_window(cfg, params, kernel_backend):
     if not (same_tally and same_out):
         raise AssertionError(f"window vs kernel granularity: tallies equal "
                              f"{same_tally}, outputs equal {same_out}")
+    int_stages = len(prog)
+    if per_step["kernel"] != int_stages:
+        raise AssertionError(f"kernel granularity: {per_step['kernel']} "
+                             f"bitlinear launches for {int_stages} integer "
+                             "stages")
     emit({"phase": "window", "m": 1, "context": 16,
-          "launches_per_decode_step": per_step, "tallies_equal": True,
+          "launches_per_decode_step": per_step, "integer_stages": int_stages,
+          "step_run_seconds": seconds, "tallies_equal": True,
           "outputs_equal": True, "stages": len(outputs["kernel"])})
 
 
@@ -525,7 +678,8 @@ def phase_block_sparse():
                         x, copies[i % len(copies)], idx, cnt, bk=bk, bn=bn,
                         out=acc)
                     row["ms"] = cuda_ms(call, 200)
-                    row["device_us"] = device_us(call, 50, "block_sparse")
+                    row["device_us"] = device_us(call, 50,
+                                                "block_sparse_i8_mma_kernel")
                     row["plain_ms"] = cuda_ms(
                         lambda i: block_sparse_matmul_ref(
                             x, copies[i % len(copies)], mask, bk=bk, bn=bn),
@@ -747,7 +901,9 @@ def phase_ssd():
             "chunk": chunk, "max_abs_err": err,
             "y_max_abs": float(y_ref.abs().max()),
             "ms": cuda_ms(call, iters),
-            "device_us": device_us(call, 5, "ssd_kernel", per_call=3),
+            "device_us": device_us(call, 5, (
+                "ssd_kernel_state", "ssd_kernel_pass", "ssd_kernel_scan"),
+                per_call=3),
             "plain_ms": cuda_ms(lambda i: plain(), 5),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
         })
@@ -821,7 +977,7 @@ def phase_flash():
             "median_abs_want": median_want, "tolerance": tol,
             "ms": cuda_ms(call, iters),
             # by type, so that a late event of the other kernel never counts
-            "device_us": device_us(call, 3, "flash_kernel_bf16" if dtype
+            "device_us": device_us(call, 3, "flash_kernel_bf16_wgmma" if dtype
                                    == torch.bfloat16 else "flash_kernel_f32"),
             "plain_ms": cuda_ms(lambda i: plain(lambda t: t), 3),
             "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
@@ -1036,11 +1192,13 @@ def main() -> int:
     hy_launches = phase_hybrid_serve()
 
     head = next(r for r in rows if r["stage"] == "mlp_up" and r["m"] == 1
-                and r["bits"] == 2)
+                and r["bits"] == 2 and not r.get("grouped"))
+    stage_head = next(r for r in rows if r["stage"] == "mlp_up"
+                      and r["m"] == 1 and r.get("grouped"))
     bs_head = next(r for r in bs_rows if r["stage"] == "qkv_proj"
                    and r["sparsity"] == 0.5 and r["dtype"] == "int8")
     emit({"kernels": [{
-        "name": "bitlinear", "route": "cuda",
+        "name": "bitlinear", "route": "cuda", "redesigned": 15,
         "source": "src/repro_torch/csrc/bitlinear.cu",
         "replaces": "src/repro/kernels/bitlinear/kernel.py:75",
         "launches": sum(launches.values()),
@@ -1050,8 +1208,10 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "decode_mlp_up_stage": {k: stage_head[k] for k in (
+            "items", "ms", "device_us", "bound_ms", "bound_by")},
     }, {
-        "name": "block_sparse", "route": "cuda",
+        "name": "block_sparse", "route": "cuda", "redesigned": 15,
         "source": "src/repro_torch/csrc/block_sparse.cu",
         "replaces": "src/repro/kernels/block_sparse/kernel.py:63",
         "launches": sum(bs_launches.values()),

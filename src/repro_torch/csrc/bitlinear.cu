@@ -1,4 +1,5 @@
-// bitlinear: C[M, N] (+)= A[M, K] (int8) @ unpack(B)[K, N], exact int32.
+// bitlinear: C[M, N] (+)= A[M, K] (int8) @ unpack(B)[K, N], exact int32, for
+// a group of independent products in one launch.
 //
 // Replaces the TPU kernel `_bitlinear_kernel` / `bitlinear_matmul` of
 // src/repro/kernels/bitlinear/kernel.py (a Pallas kernel that unpacks the
@@ -11,145 +12,388 @@
 //   bits = 4: byte (k', n) holds rows 2k', 2k'+1 (low nibble first);
 //   bits = 8: B is plain int8 [K, N] (the W8 / act-to-act dense path).
 //
-// What bounds it on an H100: at decode (M = 1..4) every packed weight byte is
-// used M times, so the kernel is bound by reading B from device memory
-// (3.35 TB/s); the 2-bit layout moves a quarter of the int8 bytes.  At
-// prefill (M = tens of rows) the int8 multiply-adds grow with M while the
-// bytes do not; the ceiling there is the int8 tensor-core rate, which this
-// first version does not reach: it multiplies with __dp4a on the CUDA cores.
+// What bounds it on an H100: every shape of the serve path (M = 1..24) is
+// bound by reading B (3.35 TB/s; the 2-bit layout moves a quarter of the int8
+// bytes) or, for the small act-to-act stages, by the launch itself.  The int8
+// tensor cores keep the arithmetic below the bytes even at M = 24, where
+// __dp4a on the CUDA cores would not.  wgmma is not used: its 64-row tiles buy
+// nothing at M <= 24 on products bound by bytes or the launch.
 //
-// Design: one block of 256 threads per [BM=16, BN=64] output tile.  Each step
-// of the K loop stages BK=128 values of A and the matching packed rows of B
-// in shared memory, unpacking and sign-extending B to int8 on the way, stored
-// K-contiguous per column so that one 32-bit word feeds one __dp4a (for
-// 2-bit weights one packed byte is exactly one such word).  Ragged M, N and K
-// edges are masked with zeros; leading-dimension strides are passed in, so
-// strided tile views of a larger matrix need no copy.  When the caller asks
-// to accumulate into C, the K range may be split over gridDim.z blocks that
-// add their partial sums with integer atomics (exact in any order), which
-// gives a decode GEMV of a narrow tile enough blocks to keep loads in flight.
-// wgmma, TMA and multi-stage pipelining are later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design:
+//   - Swapped operands: the block computes C^T = unpack(B)^T A^T, so output
+//     columns n fill the 16-row side of mma.sync m16n8k32 and activation rows
+//     m its 8-wide side; M = 1 wastes 7/8 of one narrow fragment, not 15/16 of
+//     the weight traffic.  An A register holds 4 consecutive K values of one
+//     weight column, which is exactly one byte of the 2-bit packing; it is
+//     built in registers from one 32-bit shared-memory word (four
+//     neighbouring columns), offset to unsigned bytes and byte-transposed
+//     (int8_mma.cuh; the offset is taken back with sum(x) from one more MMA
+//     against an all-ones A).  The MMA rows are permuted so that those four
+//     columns are rows g, g+8 of two MMAs: one word feeds two MMAs, and no
+//     unpacked copy of the weights is ever written.  B registers are 4
+//     consecutive bytes of one activation row: aligned 32-bit loads.
+//   - One block of 4 warps per [BM = 8 MT, BN = 128] output tile; a warp owns
+//     32 columns.  K runs in stages of 64 through a 4-deep ring in shared
+//     memory (8 deep measured no faster at bits 2) filled by 16-byte
+//     cp.async copies of the packed weight rows (N-contiguous, as stored;
+//     16-byte chunks XOR-swizzled so that the fragment reads hit 32
+//     distinct banks) and of the activation rows.  Every slot is filled before the first
+//     MMA, and each refill goes out one step after its slot was read.
+//     Ragged M, N and K edges are zero-filled; sources that are not 16-byte
+//     aligned (views at odd offsets) go through registers instead.
+//   - Grouped: one launch covers a work list of products (a Legion stage's
+//     assignments).  The list travels in the kernel's parameters
+//     (__grid_constant__, up to 400 items in 28.8 KB: CUDA >= 12.1 takes
+//     32,764 bytes of parameters on sm_90); each block finds its item by
+//     binary search over the items' first tiles, as a grouped-GEMM problem
+//     visitor does.  A single product is a group of one.
+//   - Split-K: when the group has fewer output tiles than two blocks per SM,
+//     the K stages of each item split over several blocks (at least
+//     MIN_STEPS stages each) whose partial sums are added with integer
+//     atomics (exact in any order).  Accumulating calls always add with
+//     atomics, so items whose outputs overlap still sum exactly.
+#include "int8_mma.cuh"
 
 namespace {
 
-constexpr int BM = 16;
-constexpr int BN = 64;
-constexpr int BK = 128;
-constexpr int THREADS = 256;
-constexpr int PITCH = BK + 4;            // bytes per smem row: 33 words, no bank conflicts
-constexpr int WPITCH = PITCH / 4;
+using namespace i8mma;
 
-__device__ __forceinline__ int8_t field(uint32_t byte, int bits, int i) {
-  const int v = (byte >> (bits * i)) & ((1 << bits) - 1);
-  const int sign = 1 << (bits - 1);
-  return static_cast<int8_t>((v ^ sign) - sign);
+constexpr int BN = 128;                  // output columns per block (4 warps x 32)
+constexpr int BK = 64;                   // K values per pipeline stage
+constexpr int STAGES = 4;                // ring depth
+constexpr int THREADS = 128;
+constexpr int MIN_STEPS = 4;             // K stages a split block runs at least
+constexpr int XPITCH = BK + 16;          // bytes per staged activation row (20 words)
+constexpr int SMALL = 8, LARGE = 400;    // work-list capacities
+
+struct Item {
+  const int8_t* a;
+  const uint8_t* b;
+  int32_t* c;
+  long long lda, ldb, ldc;
+  int m, n, k;
+  int tile0;                             // first block of this item
+  int splits;                            // blocks sharing each output tile's K range
+  int flags;                             // 1: A rows 16-byte aligned, 2: B rows
+};
+
+template <int CAP>
+struct Group {
+  Item item[CAP];
+  int count;
+  int accumulate;
+};
+
+template <int BITS, int MT, int CAP>
+__global__ void __launch_bounds__(THREADS)
+bitlinear_kernel(const __grid_constant__ Group<CAP> g) {
+  constexpr int F = 8 / BITS;            // K values per packed byte
+  constexpr int WROWS = BK / F;          // packed rows per stage
+  constexpr int SH = BITS == 2 ? 0 : (BITS == 4 ? 1 : 2);   // log2 rows per 4 K
+  constexpr int BM = 8 * MT;
+  __shared__ __align__(128) uint8_t ws[STAGES][WROWS * BN];
+  __shared__ __align__(128) uint8_t xs[STAGES][BM * XPITCH];
+
+  // the item whose tiles hold this block
+  const int bid = blockIdx.x;
+  int lo = 0, hi = g.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (g.item[mid].tile0 <= bid) lo = mid; else hi = mid - 1;
+  }
+  const Item& it = g.item[lo];
+  const int M = it.m, N = it.n, K = it.k;
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = (N + BN - 1) / BN;
+  int local = bid - it.tile0;
+  const int m0 = (local % tiles_m) * BM;
+  local /= tiles_m;
+  const int n0 = (local % tiles_n) * BN;
+  const int split = local / tiles_n;
+  const int chunks = (K + BK - 1) / BK;
+  const int per = (chunks + it.splits - 1) / it.splits;
+  const int c0 = split * per;
+  const int steps = max(min(c0 + per, chunks) - c0, 0);
+
+  const uint8_t* A = reinterpret_cast<const uint8_t*>(it.a);
+  const uint8_t* B = it.b;
+  const long long lda = it.lda, ldb = it.ldb;
+  const bool a16 = it.flags & 1, b16 = it.flags & 2;
+  const int kq_total = K / F;
+
+  // constant trip counts, unrolled: a thread's copies all go out before
+  // any of them is waited on (which matters on the register path)
+  auto load = [&](int slot, int chunk) {
+    const int k0 = chunk * BK;
+    const int r0 = k0 / F;
+#pragma unroll
+    for (int j = 0; j < (WROWS * (BN / 16) + THREADS - 1) / THREADS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i < WROWS * (BN / 16)) {
+        const int r = i / (BN / 16), c = i % (BN / 16);
+        const int row = r0 + r, col = n0 + c * 16;
+        const int bytes = row < kq_total ? min(max(N - col, 0), 16) : 0;
+        const int swizzled = c ^ (((r >> SH) & 3) << 1);
+        stage16(&ws[slot][r * BN + swizzled * 16],
+                bytes ? B + row * ldb + col : B, bytes, b16);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < (BM * (BK / 16) + THREADS - 1) / THREADS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i < BM * (BK / 16)) {
+        const int r = i / (BK / 16), c = i % (BK / 16);
+        const int m = m0 + r, k = k0 + c * 16;
+        const int bytes = m < M ? min(max(K - k, 0), 16) : 0;
+        stage16(&xs[slot][r * XPITCH + c * 16], bytes ? A + m * lda + k : A,
+                bytes, a16);
+      }
+    }
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int cw = warp * 8 + gq;          // this thread's word column (4 n)
+
+  // one 32-bit word of packed row r, word column cw, through the swizzle
+  auto word = [&](const uint8_t* W, int r) -> uint32_t {
+    const int c = (cw >> 2) ^ (((r >> SH) & 3) << 1);
+    return *reinterpret_cast<const uint32_t*>(W + r * BN + c * 16 +
+                                              (cw & 3) * 4);
+  };
+  // fragment registers of K group q (K values 4q..4q+3 of a 32-deep step
+  // kk) for columns 4 gq + i, i = 0..3
+  auto planes = [&](const uint8_t* W, int kk, int q, uint32_t (&r)[4]) {
+    if constexpr (BITS == 2) {
+      planes_2bit(word(W, kk * 8 + q), r);
+    } else if constexpr (BITS == 4) {
+      const int row = kk * 16 + 2 * q;
+      planes_4bit(word(W, row), word(W, row + 1), r);
+    } else {
+      const int row = kk * 32 + 4 * q;
+      transpose4(word(W, row), word(W, row + 1), word(W, row + 2),
+                 word(W, row + 3), r);
+    }
+  };
+
+  // acc: the products, of offset weights below 8 bits; xsum: sum(x) of
+  // each activation row over the block's K range, for the offset's
+  // correction (columns 2t, 2t+1 of an all-ones MMA)
+  int acc[MT][2][4], xsum[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      acc[i][0][v] = acc[i][1][v] = 0;
+      xsum[i][v] = 0;
+    }
+
+  // Every slot is filled up front (a split of STAGES stages is in flight
+  // whole); each later refill takes the slot consumed one step before, so
+  // one barrier a step keeps readers and writers apart.  Copy group g
+  // carries stage g: step 0 waits for group 0 of STAGES, step s > 0 for
+  // group s of STAGES + s - 1.
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    if (s < steps) load(s, c0 + s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    if (step == 0) {
+      cp_async_wait<STAGES - 1>();
+    } else {
+      cp_async_wait<STAGES - 2>();
+    }
+    __syncthreads();
+    if (step > 0) {
+      const int refill = step - 1 + STAGES;
+      if (refill < steps) load((step - 1) % STAGES, c0 + refill);
+      cp_async_commit();
+    }
+    const uint8_t* W = ws[step % STAGES];
+    const uint8_t* X = xs[step % STAGES];
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      uint32_t lo4[4], hi4[4];
+      planes(W, kk, t, lo4);             // K values 4t..4t+3
+      planes(W, kk, 4 + t, hi4);         // K values 16+4t..16+4t+3
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const uint32_t* xr =
+            reinterpret_cast<const uint32_t*>(X + (i * 8 + gq) * XPITCH);
+        const uint32_t b0 = xr[kk * 8 + t], b1 = xr[kk * 8 + 4 + t];
+        // MMA rows g, g+8 are columns 4gq, 4gq+1 (h = 0) or 4gq+2, 4gq+3
+        if constexpr (BITS == 8) {
+          mma_s8(acc[i][0], lo4[0], lo4[1], hi4[0], hi4[1], b0, b1);
+          mma_s8(acc[i][1], lo4[2], lo4[3], hi4[2], hi4[3], b0, b1);
+        } else {
+          constexpr uint32_t ones = 0x01010101u;
+          mma_u8s8(acc[i][0], lo4[0], lo4[1], hi4[0], hi4[1], b0, b1);
+          mma_u8s8(acc[i][1], lo4[2], lo4[3], hi4[2], hi4[3], b0, b1);
+          mma_u8s8(xsum[i], ones, ones, ones, ones, b0, b1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  int32_t* C = it.c;
+  const long long ldc = it.ldc;
+  const bool accumulate = g.accumulate;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int m = m0 + i * 8 + 2 * t + (v & 1);
+        const int n = n0 + warp * 32 + 4 * gq + 2 * h + (v >> 1);
+        if (m >= M || n >= N) continue;
+        constexpr int offset = BITS == 2 ? 2 : (BITS == 4 ? 8 : 0);
+        const int value = acc[i][h][v] - offset * xsum[i][v & 1];
+        int32_t* dst = C + m * ldc + n;
+        if (accumulate) {
+          atomicAdd(dst, value);
+        } else {
+          *dst = value;
+        }
+      }
+    }
+  }
 }
 
-template <int BITS>
-__global__ void __launch_bounds__(THREADS)
-bitlinear_kernel(const int8_t* __restrict__ A, long long lda,
-                 const uint8_t* __restrict__ B, long long ldb,
-                 int32_t* __restrict__ C, long long ldc,
-                 int M, int N, int K, int accumulate, int chunks_per_split) {
-  constexpr int F = 8 / BITS;            // K values per packed byte
-  constexpr int BKQ = BK / F;            // packed rows per K step
-  __shared__ __align__(16) int8_t xs[BM * PITCH];
-  __shared__ __align__(16) int8_t ws[BN * PITCH];   // [n][k], K-contiguous
+template <int BITS, int MT, int CAP>
+cudaError_t launch(const Group<CAP>& grp, int blocks, cudaStream_t s) {
+  bitlinear_kernel<BITS, MT, CAP><<<blocks, THREADS, 0, s>>>(grp);
+  return cudaGetLastError();
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;               // output columns tx + 16 j
-  const int ty = tid / 16;               // output row
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int kq_total = K / F;
-  const int chunk0 = blockIdx.z * chunks_per_split;
-  const int chunk1 = min(chunk0 + chunks_per_split, (K + BK - 1) / BK);
+template <int CAP>
+cudaError_t launch_bits(const Group<CAP>& grp, int blocks, int bits, int mt,
+                        cudaStream_t s) {
+#define BITLINEAR_CASE(B_, MT_) \
+  if (bits == B_ && mt == MT_) return launch<B_, MT_, CAP>(grp, blocks, s);
+  BITLINEAR_CASE(2, 1) BITLINEAR_CASE(2, 2) BITLINEAR_CASE(2, 4)
+  BITLINEAR_CASE(4, 1) BITLINEAR_CASE(4, 2) BITLINEAR_CASE(4, 4)
+  BITLINEAR_CASE(8, 1) BITLINEAR_CASE(8, 2) BITLINEAR_CASE(8, 4)
+#undef BITLINEAR_CASE
+  return cudaErrorInvalidValue;
+}
 
-  int acc[4] = {0, 0, 0, 0};
-  const int* xw = reinterpret_cast<const int*>(xs);
-  const int* ww = reinterpret_cast<const int*>(ws);
-
-  for (int chunk = chunk0; chunk < chunk1; ++chunk) {
-    const int k0 = chunk * BK;
-    const int kq0 = k0 / F;
-    for (int idx = tid; idx < BM * BK; idx += THREADS) {
-      const int r = idx / BK, c = idx % BK;
-      const int m = m0 + r, k = k0 + c;
-      xs[r * PITCH + c] = (m < M && k < K) ? A[m * lda + k] : int8_t(0);
-    }
-    for (int idx = tid; idx < BKQ * BN; idx += THREADS) {
-      const int r = idx / BN, c = idx % BN;
-      const int n = n0 + c, kq = kq0 + r;
-      const uint32_t byte = (n < N && kq < kq_total) ? B[kq * ldb + n] : 0u;
-#pragma unroll
-      for (int i = 0; i < F; ++i) {
-        ws[c * PITCH + r * F + i] = BITS == 8 ? static_cast<int8_t>(byte)
-                                              : field(byte, BITS, i);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kw = 0; kw < BK / 4; ++kw) {
-      const int a = xw[ty * WPITCH + kw];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[j] = __dp4a(a, ww[(tx + 16 * j) * WPITCH + kw], acc[j]);
-      }
-    }
-    __syncthreads();
+// Fills `grp` with items [first, first + count) of `all`, returns the blocks.
+template <int CAP>
+int pack(Group<CAP>& grp, const Item* all, int first, int count,
+         int accumulate, int bm) {
+  int blocks = 0;
+  grp.count = 0;
+  grp.accumulate = accumulate;
+  for (int i = first; i < first + count; ++i) {
+    Item it = all[i];
+    const int tiles = ((it.m + bm - 1) / bm) * ((it.n + BN - 1) / BN);
+    if (tiles == 0) continue;            // an empty product writes nothing
+    it.tile0 = blocks;
+    blocks += tiles * it.splits;
+    grp.item[grp.count++] = it;
   }
-
-  const int m = m0 + ty;
-  if (m >= M) return;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx + 16 * j;
-    if (n >= N) continue;
-    int32_t* dst = C + m * ldc + n;
-    if (!accumulate) {
-      *dst = acc[j];
-    } else if (gridDim.z > 1) {
-      atomicAdd(dst, acc[j]);
-    } else {
-      *dst += acc[j];
-    }
-  }
+  return blocks;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-// accumulate = 0: C = A @ B (C fully overwritten, splits must be 1);
-// accumulate = 1: C += A @ B, the K chunks of BK split over `splits` blocks.
-extern "C" int bitlinear_launch(const void* A, long long lda, const void* B,
-                                long long ldb, void* C, long long ldc, int M,
-                                int N, int K, int bits, int accumulate,
-                                int splits, void* stream) {
-  const int chunks = (K + BK - 1) / BK;
-  if (splits < 1) splits = 1;
-  if (splits > chunks) splits = chunks > 0 ? chunks : 1;
-  const int per = (chunks + splits - 1) / splits;
-  splits = chunks > 0 ? (chunks + per - 1) / per : 1;
-  if (!accumulate && splits != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+// The grouped entry point.  `desc` holds `count` products of 9 int64 values
+// each: A, lda, B, ldb, C, ldc, M, N, K (pointers as integers, strides in
+// elements, unit stride along each last axis).  All take the same `bits`.
+// accumulate = 1: C += A @ unpack(B) with atomics; accumulate = 0: C = ...
+// `sms`: the card's multiprocessors, which sizes the split of K.  Launches
+// on `stream`.  Returns the number of kernel launches made (>= 0), or minus
+// the CUDA error.
+extern "C" int bitlinear_grouped_launch(const long long* desc, int count,
+                                        int bits, int accumulate, int sms,
+                                        void* stream) {
+  if (count < 0 || (bits != 2 && bits != 4 && bits != 8))
+    return -static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const int8_t*>(A);
-  auto b = static_cast<const uint8_t*>(B);
-  auto c = static_cast<int32_t*>(C);
-  switch (bits) {
-    case 2:
-      bitlinear_kernel<2><<<grid, THREADS, 0, s>>>(a, lda, b, ldb, c, ldc, M, N, K, accumulate, per);
-      break;
-    case 4:
-      bitlinear_kernel<4><<<grid, THREADS, 0, s>>>(a, lda, b, ldb, c, ldc, M, N, K, accumulate, per);
-      break;
-    case 8:
-      bitlinear_kernel<8><<<grid, THREADS, 0, s>>>(a, lda, b, ldb, c, ldc, M, N, K, accumulate, per);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int f = 8 / bits;
+  int max_m = 0;
+  Item* items = new Item[count > 0 ? count : 1];
+  for (int i = 0; i < count; ++i) {
+    const long long* d = desc + 9 * i;
+    Item& it = items[i];
+    it.a = reinterpret_cast<const int8_t*>(d[0]);
+    it.lda = d[1];
+    it.b = reinterpret_cast<const uint8_t*>(d[2]);
+    it.ldb = d[3];
+    it.c = reinterpret_cast<int32_t*>(d[4]);
+    it.ldc = d[5];
+    it.m = static_cast<int>(d[6]);
+    it.n = static_cast<int>(d[7]);
+    it.k = static_cast<int>(d[8]);
+    if (it.m < 0 || it.n < 0 || it.k < 0 || it.k % f) {
+      delete[] items;
+      return -static_cast<int>(cudaErrorInvalidValue);
+    }
+    it.flags = ((d[0] % 16 == 0 && it.lda % 16 == 0) ? 1 : 0) |
+               ((d[2] % 16 == 0 && it.ldb % 16 == 0) ? 2 : 0);
+    max_m = it.m > max_m ? it.m : max_m;
   }
-  return static_cast<int>(cudaGetLastError());
+  const int mt = max_m <= 8 ? 1 : (max_m <= 16 ? 2 : 4);
+  const int bm = 8 * mt;
+  // Split K while the group has fewer tiles than two blocks per SM, down
+  // to MIN_STEPS stages per block.  More splits of shorter blocks measured
+  // slower on whole stages: each block pays its ring's fill, and at M = 24
+  // each restages its activations.
+  long long tiles = 0;
+  for (int i = 0; i < count; ++i)
+    tiles += static_cast<long long>((items[i].m + bm - 1) / bm) *
+             ((items[i].n + BN - 1) / BN);
+  const long long target = 2LL * (sms > 0 ? sms : 1);
+  const int want = tiles > 0 && tiles < target
+                       ? static_cast<int>((target + tiles - 1) / tiles) : 1;
+  bool zero_first = false;
+  for (int i = 0; i < count; ++i) {
+    Item& it = items[i];
+    const int chunks = (it.k + BK - 1) / BK;
+    const int most = (chunks + MIN_STEPS - 1) / MIN_STEPS;
+    int splits = want < most ? want : most;
+    if (splits < 1) splits = 1;
+    const int per = (chunks + splits - 1) / splits;
+    it.splits = chunks > 0 ? (chunks + per - 1) / per : 1;
+    if (!accumulate && it.splits > 1) zero_first = true;
+  }
+  if (zero_first) {
+    // split partial sums add into C, so a fresh C starts at zero
+    for (int i = 0; i < count; ++i) {
+      const Item& it = items[i];
+      if (it.m == 0 || it.n == 0) continue;
+      const cudaError_t e = cudaMemset2DAsync(
+          it.c, it.ldc * 4, 0, static_cast<size_t>(it.n) * 4, it.m, s);
+      if (e != cudaSuccess) {
+        delete[] items;
+        return -static_cast<int>(e);
+      }
+    }
+    accumulate = 1;
+  }
+  int launches = 0;
+  cudaError_t err = cudaSuccess;
+  if (count <= SMALL) {
+    Group<SMALL> grp;
+    const int blocks = pack(grp, items, 0, count, accumulate, bm);
+    if (blocks > 0) {
+      err = launch_bits(grp, blocks, bits, mt, s);
+      ++launches;
+    }
+  } else {
+    thread_local Group<LARGE> grp;       // 28.8 KB: off the host stack
+    for (int first = 0; first < count && err == cudaSuccess; first += LARGE) {
+      const int n = count - first < LARGE ? count - first : LARGE;
+      const int blocks = pack(grp, items, first, n, accumulate, bm);
+      if (blocks > 0) {
+        err = launch_bits(grp, blocks, bits, mt, s);
+        ++launches;
+      }
+    }
+  }
+  delete[] items;
+  return err == cudaSuccess ? launches : -static_cast<int>(err);
 }

@@ -17,11 +17,12 @@ the CUDA sources live in ``src/repro_torch/csrc/`` and are built by
              float32 or bfloat16 (``csrc/flash_attention.cu``)
 
 The dense backend of the runtime's uniform ``tile_gemm(x, w, **kw)``
-contract lives here as :func:`dense_tile_gemm`.
+contract lives here as :func:`dense_tile_gemm`, and its grouped
+counterpart for integer operands as :func:`dense_grouped_tile_gemm`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -47,3 +48,18 @@ def dense_tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
         return res
     out += res
     return out
+
+
+def dense_grouped_tile_gemm(x: torch.Tensor, w: torch.Tensor,
+                            out: torch.Tensor, slices: Sequence, *,
+                            backend: str = "auto") -> None:
+    """``out[i, :, lo:hi] += x[i] @ w[i][:, lo:hi]`` for every ``(i, lo,
+    hi)`` of ``slices``: integer operands, int32 outputs, one bitlinear
+    kernel launch at ``bits=8`` for the whole group on CUDA tensors (its
+    plain version on CPU tensors).  Float operands raise: they take
+    :func:`dense_tile_gemm` one product at a time, in the reference's
+    order."""
+    if x.dtype.is_floating_point or w.dtype.is_floating_point:
+        raise TypeError("the grouped dense path takes integer operands; "
+                        f"got {x.dtype}, {w.dtype}")
+    _bitlinear.grouped_tile_gemm(x, w, out, slices, bits=8, backend=backend)

@@ -36,3 +36,13 @@ def bitlinear_matmul_ref(
 ) -> torch.Tensor:
     """out[M, N] = x[M, K] @ unpack(w_packed)[K, N], int32 accumulation."""
     return int_matmul(x, unpack_weights(w_packed, bits))
+
+
+def grouped_tile_gemm_ref(x, w, out, slices, *, bits: int) -> None:
+    """``out[i, :, lo:hi] += x[i] @ unpack(w[i][:, lo:hi])`` for every
+    ``(i, lo, hi)`` of ``slices``, one after another (``x`` or ``w`` without
+    an instance axis is shared): the plain version of the grouped kernel."""
+    for i, lo, hi in slices:
+        xi = x[i] if x.ndim == 3 else x
+        wi = w[i] if w.ndim == 3 else w
+        out[i, :, lo:hi] += bitlinear_matmul_ref(xi, wi[:, lo:hi], bits=bits)

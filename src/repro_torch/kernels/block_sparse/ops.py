@@ -11,20 +11,22 @@ show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.sparsity import csr_block_schedule
-from repro_torch.kernels.bitlinear.ops import resolve_backend, sm_count
+from repro_torch.kernels.bitlinear.ops import (
+    raw_stream, resolve_backend, sm_count,
+)
 from repro_torch.kernels.block_sparse.ref import block_sparse_matmul_ref
 
 DTYPES = {torch.int8: ("int8", 0, torch.int32),
           torch.float32: ("float32", 1, torch.float32)}
 LAUNCHES: Dict[str, int] = {name: 0 for name, _, _ in DTYPES.values()}
-KERNEL_BN = 64            # output columns of one block of the kernel
+KERNEL_BN = 64            # the Machine's schedule columns: one int8 block each
+_entry = None             # the C entry point, resolved at first launch
 
 
 def reset_launches() -> None:
@@ -64,29 +66,43 @@ def _schedule_mask(indices: torch.Tensor, counts: torch.Tensor,
     return mask
 
 
+def _launch_fn():
+    global _entry
+    if _entry is None:
+        from repro_torch.kernels.build import library
+
+        fn = library("block_sparse").block_sparse_launch
+        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ci, vp, ll, vp, ll, vp, ll, ci, ci, ci, vp, ci, vp,
+                       ci, ci, ci, ci, vp]
+        fn.restype = ci
+        _entry = fn
+    return _entry
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, indices: torch.Tensor,
             counts: torch.Tensor, bk: int, bn: int,
             out: Optional[torch.Tensor]) -> torch.Tensor:
     """C (+)= x @ w over the scheduled blocks, on the card; returns C."""
-    from repro_torch.kernels.build import library
-
     if x.dtype != w.dtype or x.dtype not in DTYPES:
         raise TypeError("kernel takes int8 x int8 or float32 x float32 "
                         f"operands; got {x.dtype}, {w.dtype}")
     name, code, out_dtype = DTYPES[x.dtype]
     if out is not None and out.dtype != out_dtype:
         raise TypeError(f"out must be {out_dtype}, got {out.dtype}")
-    tensors = (("x", x), ("w", w), ("out", out), ("indices", indices),
-               ("counts", counts))
-    if any(t is not None and t.device != x.device for _, t in tensors):
-        raise ValueError("x, w, out and the schedule must lie on one CUDA "
-                         "device")
-    for label, t in tensors:
-        if t is not None and t.shape[-1] > 1 and t.stride(-1) != 1:
-            raise ValueError(f"{label} needs unit stride along its last "
-                             "axis")
     if indices.dtype != torch.int32 or counts.dtype != torch.int32:
         raise TypeError("the schedule must be int32")
+    dev = x.get_device()
+    for label, t in (("x", x), ("w", w), ("out", out), ("indices", indices),
+                     ("counts", counts)):
+        if t is None:
+            continue
+        if t.get_device() != dev:
+            raise ValueError("x, w, out and the schedule must lie on one "
+                             "CUDA device")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{label} needs unit stride along its last "
+                             "axis")
     m, k = x.shape
     n = w.shape[1]
     accumulate = out is not None
@@ -94,24 +110,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, indices: torch.Tensor,
         out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    s = indices.shape[1]
-    splits = 1
-    if accumulate and code == 0:
-        # Spread the schedule entries over enough blocks to fill the card
-        # twice; the kernel adds the partial sums with integer atomics.
-        bm = 64 if m > 32 else 16
-        tiles = counts.shape[0] * math.ceil(bn / KERNEL_BN) * math.ceil(m / bm)
-        splits = max(1, min(s, math.ceil(2 * sm_count(x.device) / tiles)))
-    fn = library("block_sparse").block_sparse_launch
-    if fn.argtypes is None:
-        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, ll, vp, ll, vp, ll, ci, ci, ci, vp, ci, vp,
-                       ci, ci, ci, ci, vp]
-        fn.restype = ci
-    rc = fn(code, x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
-            out.data_ptr(), out.stride(0), m, n, k, indices.data_ptr(),
-            indices.stride(0), counts.data_ptr(), bk, bn, int(accumulate),
-            splits, torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _launch_fn()(
+        code, x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+        out.data_ptr(), out.stride(0), m, n, k, indices.data_ptr(),
+        indices.stride(0), counts.data_ptr(), bk, bn, int(accumulate),
+        sm_count(x.device), raw_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"block_sparse kernel launch failed: CUDA error "
                            f"{rc} (M={m} N={n} K={k} bk={bk} bn={bn} "

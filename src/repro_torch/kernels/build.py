@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/kernels/lib<name>-<digest>.so`` at the root of
 the checkout (a directory ``.gitignore`` lists), then loaded with
-``ctypes``.  The digest covers the source and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+``ctypes``.  The digest covers the source, every shared header
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads the library already built.
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -39,10 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> List[Path]:

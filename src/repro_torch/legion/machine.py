@@ -23,7 +23,9 @@ core grouping):
   launches the bitlinear CUDA kernel — or, for +ZTB modes at kernel
   granularity, the block-sparse kernel on a schedule built once per plan —
   (for CPU sessions, their plain versions) on strided views of them, and
-  the int32 accumulator stays on the device until the stage ends.  (The
+  the int32 accumulator stays on the device until the stage ends.  At
+  kernel granularity an integer stage without +ZTB launches the bitlinear
+  kernel once, for all of its assignments' slices together.  (The
   JAX package's ``ShardedExecutor`` waits for a later slice of the port.)
 
 ``Machine(cfg).run(plan_or_workload)`` returns a :class:`RunReport` merging
@@ -61,7 +63,9 @@ from repro_torch.core.simulator import simulate, simulate_workload
 from repro_torch.core.sparsity import ZeroTileBook, ZTBStats
 from repro_torch.core.workloads import GEMMWorkload, N_PARTITION
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch import kernels
 from repro_torch.kernels import dense_tile_gemm
+from repro_torch.kernels.bitlinear import ops as bl_ops
 from repro_torch.kernels.bitlinear.ops import tile_gemm as bl_tile
 from repro_torch.kernels.block_sparse import ops as bs_ops
 from repro_torch.legion.latency import (
@@ -265,7 +269,8 @@ class ExecContext:
     page_tokens: int = 0
     page_axis: str = ""
     books: Optional[List[ZeroTileBook]] = None
-    packed: Optional[List[torch.Tensor]] = None
+    # K-major packed weights, [count, K / f, N] or [K / f, N] when shared
+    packed: Optional[torch.Tensor] = None
     # (instance, n_lo, n_hi) -> block-sparse kernel schedule (+ZTB modes at
     # kernel granularity)
     schedules: Optional[Dict[Tuple[int, int, int],
@@ -314,7 +319,7 @@ def prepare_context(
     K-padding, ZTB books, sub-byte packing, traffic geometry — and upload
     the padded operands and packed weights to ``device`` once."""
     from repro_torch.legion.runtime import (
-        _build_books, _instance_view, _pad_axis, validate_coverage,
+        _build_books, _pad_axis, validate_coverage,
     )
 
     validate_options(granularity=granularity, kernel_backend=kernel_backend,
@@ -372,7 +377,7 @@ def prepare_context(
     if mode.backend == BLOCK_SPARSE and granularity == "kernel":
         schedules = _block_schedules(plan, w_pad, k_window, device)
 
-    packed: Optional[List[torch.Tensor]] = None
+    packed: Optional[torch.Tensor] = None
     if mode.backend == BITLINEAR:
         factor = 8 // mode.weight_bits
         if k_window % factor or cfg.d % factor:
@@ -381,8 +386,11 @@ def prepare_context(
                 f"factor {factor}"
             )
         pack = pack_2bit_kmajor if mode.weight_bits == 2 else pack_4bit_kmajor
-        packed = [pack(_instance_view(w_dev, i, 2).to(torch.int8))
-                  for i in range(count)]
+        if w_dev.ndim == 2:
+            packed = pack(w_dev.to(torch.int8))      # shared by every instance
+        else:
+            packed = torch.stack([pack(w_dev[i].to(torch.int8))
+                                  for i in range(count)])
 
     # units==1: no NoC — every instance refetches its stationary tiles and
     # streams privately; padded-tile accounting matches the analytic model.
@@ -452,7 +460,8 @@ def _gemm(ctx: ExecContext, xs: torch.Tensor, inst: int, k_lo: int,
 
     if ctx.mode.backend == BITLINEAR:
         factor = 8 // ctx.mode.weight_bits
-        wp = ctx.packed[inst][k_lo // factor:k_hi // factor, c_lo:c_hi]
+        packed = _instance_view(ctx.packed, inst, 2)
+        wp = packed[k_lo // factor:k_hi // factor, c_lo:c_hi]
         bl_tile(xs[:, k_lo:k_hi], wp, bits=ctx.mode.weight_bits,
                 backend=ctx.kernel_backend, out=acc)
         return
@@ -480,6 +489,21 @@ def _kernel_call(ctx: ExecContext, xs: torch.Tensor, inst: int, lo: int,
     bs_ops.block_sparse_matmul(xs, ws, indices, counts, bk=ctx.k_window,
                                bn=bs_ops.KERNEL_BN,
                                backend=ctx.kernel_backend, out=acc)
+
+
+def _grouped_call(ctx: ExecContext, slices: List[Tuple[int, int, int]],
+                  out: torch.Tensor) -> None:
+    """Every whole-slice product of an integer stage, one per
+    ``(instance, n_lo, n_hi)`` of ``slices``, added into ``out`` as one
+    grouped launch of the bitlinear kernel (its plain version on the CPU):
+    packed weights at the mode's bits, dense integer weights at bits 8."""
+    if ctx.mode.backend == BITLINEAR:
+        bl_ops.grouped_tile_gemm(ctx.x_pad, ctx.packed, out, slices,
+                                 bits=ctx.mode.weight_bits,
+                                 backend=ctx.kernel_backend)
+    else:
+        kernels.dense_grouped_tile_gemm(ctx.x_pad, ctx.w_pad, out, slices,
+                                        backend=ctx.kernel_backend)
 
 
 def _window_partial(ctx: ExecContext, xs: torch.Tensor, a: Assignment,
@@ -520,6 +544,11 @@ def run_assignment_loop(
     if compute:
         out = torch.zeros((ctx.count, ctx.m, ctx.n), dtype=ctx.out_dtype,
                           device=ctx.device)
+    # kernel granularity on an integer path without +ZTB: the stage's
+    # whole-slice products go out as one grouped launch after the loop
+    grouped = (compute and ctx.granularity == "kernel" and ctx.int_path
+               and ctx.mode.backend != BLOCK_SPARSE)
+    slices: List[Tuple[int, int, int]] = []
     for a in sorted(plan.assignments, key=lambda a: (a.round, a.legion)):
         inst = a.instance
         xs = _instance_view(ctx.x_pad, inst, 2)
@@ -597,10 +626,14 @@ def run_assignment_loop(
               round_=a.round, legion=a.legion, instance=inst, m=ctx.m,
               passes=a_exec, skipped=a_skip, weight_bytes=a_wbytes)
 
-        if compute and ctx.granularity == "kernel":
+        if grouped:
+            slices.append((inst, a.n_lo, a.n_hi))
+        elif compute and ctx.granularity == "kernel":
             # whole-slice dispatch: one kernel launch per assignment
             _kernel_call(ctx, xs, inst, a.n_lo, a.n_hi,
                          out[inst, :, a.n_lo:a.n_hi])
+    if slices:
+        _grouped_call(ctx, slices, out)
     return out.cpu().numpy() if compute else None
 
 

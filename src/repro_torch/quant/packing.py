@@ -85,7 +85,7 @@ def unpack_4bit(packed: torch.Tensor) -> torch.Tensor:
 #
 # Packing a weight matrix [K, N] along K keeps N contiguous, so neighbouring
 # threads read neighbouring columns, and one 2-bit byte unpacks into the four
-# consecutive K values one ``__dp4a`` consumes.
+# consecutive K values of one int8 MMA fragment register.
 # --------------------------------------------------------------------------- #
 
 def _pack_kmajor(w: torch.Tensor, bits: int) -> torch.Tensor:

@@ -12,7 +12,7 @@ from repro.kernels.bitlinear import ops as jax_ops
 from repro.kernels.bitlinear.kernel import bitlinear_matmul as pallas_matmul
 from repro.kernels.bitlinear.ref import bitlinear_matmul_ref as jax_ref
 from repro.quant.packing import pack_2bit_kmajor, pack_4bit_kmajor
-from repro_torch.kernels import dense_tile_gemm
+from repro_torch.kernels import dense_grouped_tile_gemm, dense_tile_gemm
 from repro_torch.kernels.bitlinear import ops
 from repro_torch.kernels.bitlinear.ref import bitlinear_matmul_ref
 
@@ -97,3 +97,92 @@ def test_backend_rules_raise_instead_of_falling_back():
     with pytest.raises(ValueError):
         ops.tile_gemm(x, wp, bits=3)
     assert ops.resolve_backend("auto", x) == "reference"
+
+
+def _pallas_tile(x, wp, bits):
+    """The JAX package's tile GEMM of one item: the Pallas kernel in
+    interpret mode at bits 2/4, its dense int8 product at bits 8."""
+    if bits == 8:
+        return np.asarray(jax_dense(jnp.asarray(x), jnp.asarray(wp)))
+    return np.asarray(jax_ops.tile_gemm(jnp.asarray(x), jnp.asarray(wp),
+                                        bits=bits, backend="pallas",
+                                        interpret=True))
+
+
+def _stage_group(bits, seed):
+    """A work list as a Legion stage builds one: per-instance activations
+    and packed weights, column slices of them (strided views), a ragged
+    slice and an empty one, all into one [instances, M, N] accumulator."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, size=(2, 5, 96)).astype(np.int8)
+    w = rng.integers(*LOHI[bits], size=(2, 96, 150)).astype(np.int8)
+    wp = np.stack([wi if bits == 8 else np.array(PACK[bits](jnp.asarray(wi)))
+                   for wi in w])
+    slices = [(0, 0, 64), (0, 64, 128), (0, 128, 150), (1, 0, 70),
+              (1, 70, 70)]
+    return x, w, wp, slices
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_grouped_tile_gemm_matches_per_item_calls_and_pallas(bits):
+    x, w, wp, slices = _stage_group(bits, seed=40 + bits)
+    tx, twp = torch.from_numpy(x), torch.from_numpy(wp)
+    grouped = torch.full((2, 5, 150), 3, dtype=torch.int32)
+    single = grouped.clone()
+    ops.grouped_tile_gemm(tx, twp, grouped, slices, bits=bits)
+    for i, lo, hi in slices:
+        ops.tile_gemm(tx[i], twp[i][:, lo:hi], bits=bits,
+                      out=single[i, :, lo:hi])
+    np.testing.assert_array_equal(grouped.numpy(), single.numpy())
+    for i, lo, hi in slices:
+        if hi == lo:
+            continue                             # the empty slice
+        pallas = _pallas_tile(x[i], np.ascontiguousarray(wp[i][:, lo:hi]),
+                              bits)
+        np.testing.assert_array_equal(grouped[i, :, lo:hi].numpy() - 3,
+                                      pallas)
+    expect = [3 + x[i].astype(np.int64) @ w[i].astype(np.int64)
+              for i in range(2)]
+    np.testing.assert_array_equal(grouped[0].numpy(), expect[0])
+    np.testing.assert_array_equal(grouped[1, :, :70].numpy(),
+                                  expect[1][:, :70])
+    assert (grouped[1, :, 70:] == 3).all()
+
+
+def test_grouped_tile_gemm_shared_operands_and_overlap():
+    """Shared activations and weights (no instance axis), strided views of
+    wider matrices, and slices that write the same outputs: they add up,
+    as one call after another would (the kernel adds with atomics)."""
+    x, _, wp, _ = _stage_group(2, seed=9)
+    wide_x = torch.zeros((5, 128), dtype=torch.int8)
+    wide_x[:, 16:112] = torch.from_numpy(x[0])
+    tw = torch.from_numpy(wp[0])
+    acc = torch.zeros((2, 5, 64), dtype=torch.int32)
+    ops.grouped_tile_gemm(wide_x[:, 16:112], tw[:, :64], acc,
+                          [(0, 0, 64), (0, 0, 64), (1, 10, 40)], bits=2)
+    once = _pallas_tile(x[0], np.ascontiguousarray(wp[0][:, :64]), 2)
+    np.testing.assert_array_equal(acc[0].numpy(), 2 * once)
+    np.testing.assert_array_equal(acc[1, :, 10:40].numpy(), once[:, 10:40])
+    assert not acc[1, :, :10].any() and not acc[1, :, 40:].any()
+
+
+def test_grouped_tile_gemm_rules():
+    x = torch.zeros((1, 128), dtype=torch.int8)
+    wp = torch.zeros((32, 64), dtype=torch.uint8)
+    out = torch.zeros((1, 1, 64), dtype=torch.int32)
+    ops.grouped_tile_gemm(x, wp, out, [], bits=2)       # nothing to do
+    with pytest.raises(ValueError, match="packed K"):
+        ops.grouped_tile_gemm(x, wp[:16], out, [(0, 0, 64)], bits=2)
+    with pytest.raises(ValueError, match="match"):
+        ops.grouped_tile_gemm(x, wp[:, :32], out, [(0, 0, 32)], bits=2)
+    with pytest.raises(ValueError, match="outside"):
+        ops.grouped_tile_gemm(x, wp, out, [(1, 0, 64)], bits=2)
+    with pytest.raises(ValueError, match="outside"):
+        ops.grouped_tile_gemm(x, wp, out, [(0, 32, 65)], bits=2)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.grouped_tile_gemm(x, wp, out, [(0, 0, 64)], bits=2,
+                              backend="cuda")
+    with pytest.raises(ValueError):
+        ops.grouped_tile_gemm(x, wp, out, [(0, 0, 64)], bits=3)
+    with pytest.raises(TypeError):
+        dense_grouped_tile_gemm(x.float(), wp, out, [(0, 0, 64)])

@@ -1,0 +1,38 @@
+"""The kernel build's library name: its digest covers the source, every
+shared header of csrc/ and the flags, so that a changed header rebuilds;
+and the ablation tool's text anchors in the kernel source."""
+from pathlib import Path
+
+from repro_torch.kernels import build
+
+
+def test_changed_header_changes_library_path(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    second = build.library_path("k")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second)
+
+
+def test_ablation_variants_apply_to_kernel_source():
+    """tools/bitlinear_ablations.py builds its variants by text
+    substitution of bitlinear.cu: every anchor must still be found in the
+    committed source, and every variant must differ from the base."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "bitlinear_ablations.py"
+    spec = importlib.util.spec_from_file_location("bitlinear_ablations", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (Path(build.CSRC) / "bitlinear.cu").read_text()
+    out = tool.variants(src)
+    assert out["base"] == src
+    assert {"no_unpack", "no_mma", "loads_only", "split_target_8", "ring_8",
+            "one_capacity", "timeline"} <= set(out)
+    for name, text in out.items():
+        assert name == "base" or text != src, name

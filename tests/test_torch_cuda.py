@@ -78,6 +78,98 @@ def test_dense_int8_path_and_rejections(card):
         ops.tile_gemm(x, w, bits=8, backend="reference")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 24, 33])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_bitlinear_fragment_layout_rows(card, m, bits):
+    """Activation rows fill the MMA's 8-wide side: every row count around
+    its multiples, a ragged K (not a multiple of the 64-deep stage) and a
+    ragged N (not a multiple of the 128-column tile)."""
+    x, w = _operands(m, 264, 200, bits, 100 * m + bits, card)
+    expect = bitlinear_matmul_ref(x, w, bits=bits)
+    acc = torch.full((m, 200), -3, dtype=torch.int32, device=card)
+    ops.tile_gemm(x, w, bits=bits, out=acc)
+    got = ops.tile_gemm(x, w, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, expect)
+    assert torch.equal(acc, expect - 3)
+
+
+def _work_list(bits, m, k, instances, n_slices, shared_x, seed, device):
+    """A stage's operands as the Machine hands them over: activations
+    (shared, or one matrix per instance), packed weights [instances, K',
+    320], and ``n_slices`` column slices of random width 0..300 (ragged,
+    empty, overlapping), every other one 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(
+        -128, 128, size=(m, k) if shared_x else (instances, m, k))
+        .astype(np.int8)).to(device)
+    w = torch.from_numpy(rng.integers(*LOHI[bits], size=(instances, k, 320))
+                         .astype(np.int8)).to(device)
+    wp = torch.stack([PACK[bits](wi) for wi in w])
+    slices = []
+    for s in range(n_slices):
+        n = int(rng.integers(0, 301))
+        lo = int(rng.integers(0, 321 - n))
+        if s % 2:
+            lo -= lo % 16
+        slices.append((int(rng.integers(instances)), lo, lo + n))
+    return x, wp, slices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,instances,n_slices,shared_x", [
+    (1, 6912, 2, 6, True),       # few tiles, long K: split over blocks
+    (24, 256, 40, 40, False),    # at most four K stages: no split
+    (3, 3000, 16, 130, False),   # K rows not 16-byte aligned, large list
+    (9, 192, 8, 420, True)])     # beyond one launch's 400 slices
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_grouped_bitlinear_kernel_matches_plain_version(
+        card, bits, m, k, instances, n_slices, shared_x):
+    from repro_torch.kernels.bitlinear.ref import grouped_tile_gemm_ref
+
+    x, wp, slices = _work_list(bits, m, k, instances, n_slices, shared_x,
+                               m + n_slices + bits, card)
+    acc = torch.from_numpy(np.random.default_rng(n_slices).integers(
+        -9, 9, size=(instances, m, 320)).astype(np.int32)).to(card)
+    expect = acc.clone()
+    grouped_tile_gemm_ref(x, wp, expect, slices, bits=bits)
+    before = ops.LAUNCHES[bits]
+    ops.grouped_tile_gemm(x, wp, acc, slices, bits=bits)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[bits] == before + -(-n_slices // 400)
+    assert torch.equal(acc, expect)
+
+
+@pytest.mark.cuda
+def test_grouped_bitlinear_overlap_and_fresh_split(card):
+    """Overlapping slices add up; a fresh (non-accumulating) decode GEMV
+    long enough to split over blocks starts from zero."""
+    x, w = _operands(1, 2560, 864, 2, 21, card)
+    expect = bitlinear_matmul_ref(x, w, bits=2)
+    acc = torch.zeros((1, 1, 864), dtype=torch.int32, device=card)
+    before = ops.LAUNCHES[2]
+    ops.grouped_tile_gemm(x, w, acc, [(0, 0, 864), (0, 0, 864)], bits=2)
+    fresh = ops.bitlinear_matmul(x, w, bits=2)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[2] == before + 2
+    assert torch.equal(acc[0], 2 * expect) and torch.equal(fresh, expect)
+
+
+@pytest.mark.cuda
+def test_grouped_bitlinear_odd_offsets(card):
+    """Views whose rows are not 16-byte aligned take the register path."""
+    x, w = _operands(5, 640, 300, 2, 17, card)
+    acc = torch.zeros((1, 5, 301), dtype=torch.int32, device=card)
+    xv, wv, out = x[:, 4:132], w[1:33, 3:300], acc[:, :, 1:298]
+    ops.grouped_tile_gemm(xv, wv, out, [(0, 0, 127), (0, 130, 297)], bits=2)
+    torch.cuda.synchronize()
+    expect = bitlinear_matmul_ref(xv.contiguous(), wv.contiguous(), bits=2)
+    assert torch.equal(out[0, :, :127], expect[:, :127])
+    assert torch.equal(out[0, :, 130:], expect[:, 130:])
+    assert not acc[0, :, 0].any() and not acc[0, :, 128:131].any()
+
+
 # --------------------------------------------------------------------------- #
 # block-sparse (ZTB): int8 exactly; float32 at rtol 1e-4 / atol 1e-3 (sums
 # taken in another order than the plain version's matmul)
@@ -131,6 +223,30 @@ def test_block_sparse_kernel_matches_plain_version(card, m, k, n, bk, bn,
     assert bs_ops.LAUNCHES[str(dtype).split(".")[1]] == before + 2
     _assert_close(got, expect)
     _assert_close(acc, expect + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 512])
+@pytest.mark.parametrize("k,n,bk,bn", [(1000, 200, 96, 40),
+                                       (1000, 190, 100, 72)])
+@pytest.mark.parametrize("sparsity", [0.0, 0.5, 1.0])
+def test_block_sparse_int8_ragged_blocks(card, m, k, n, bk, bn, sparsity):
+    """int8 exactly, with blocks that divide neither K nor N (bk = 100 is
+    no multiple of 16: x is staged through registers), one column per
+    block at bn <= 64 and at 64 < bn <= 128."""
+    from repro_torch.kernels.block_sparse import ops as bs_ops
+    from repro_torch.kernels.block_sparse.ref import block_sparse_matmul_ref
+
+    x, w, mask = _sparse_operands(m, k, n, bk, bn, sparsity, torch.int8,
+                                  m + bk + bn, card)
+    expect = block_sparse_matmul_ref(x, w, mask, bk=bk, bn=bn)
+    before = bs_ops.LAUNCHES["int8"]
+    got = bs_ops.ztb_matmul(x, w, mask, bk=bk, bn=bn)
+    acc = torch.full_like(expect, -4)
+    bs_ops.ztb_matmul(x, w, mask, bk=bk, bn=bn, out=acc)
+    torch.cuda.synchronize()
+    assert bs_ops.LAUNCHES["int8"] == before + 2
+    assert torch.equal(got, expect) and torch.equal(acc, expect - 4)
 
 
 @pytest.mark.cuda

@@ -317,3 +317,76 @@ def test_core_copies_plan_and_simulate_identically(legions, ztb):
         for a, b in zip(jw, tw):
             assert str(_asdict(tplan(tcfg, b))) == str(_asdict(jplan(jcfg,
                                                                      a)))
+
+
+@pytest.fixture
+def grouped_calls(monkeypatch):
+    """Spy on the grouped bitlinear entry point (bits, items per call); a
+    per-assignment whole-slice call fails the test."""
+    import repro_torch.kernels.bitlinear.ops as bl_ops
+    import repro_torch.legion.machine as tmachine
+
+    calls = []
+    real = bl_ops.grouped_tile_gemm
+
+    def spy(x, w, out, slices, *, bits, backend="auto"):
+        calls.append((bits, len(slices)))
+        return real(x, w, out, slices, bits=bits, backend=backend)
+
+    def per_assignment(*_args, **_kwargs):
+        raise AssertionError("an integer stage launched per assignment")
+
+    monkeypatch.setattr(bl_ops, "grouped_tile_gemm", spy)
+    monkeypatch.setattr(tmachine, "_kernel_call", per_assignment)
+    return calls
+
+
+@pytest.mark.parametrize("case", sorted(RUNTIME_CASES))
+def test_kernel_granularity_launches_once_per_stage(case, grouped_calls):
+    _j, t = _run_both(_dlegion, RUNTIME_CASES[case], granularity="kernel")
+    assert grouped_calls == [(RUNTIME_CASES[case]["weight_bits"],
+                              len(t.plan.assignments))]
+
+
+def test_program_serve_step_at_kernel_granularity(grouped_calls):
+    """A lowered serve step through both Machines at kernel granularity:
+    one grouped call per integer stage, outputs bit-exact to the JAX
+    Machine and to the NumPy reference execution, tallies equal."""
+    reports = []
+    for wl_mod, core, legion in ((jwl, jcore, jlegion),
+                                 (twl, tcore, tlegion)):
+        ops = []
+        for stage, k, n, count, mapping in (
+                (wl_mod.QKV_PROJ, 64, 16, 12, wl_mod.HEAD_PER_UNIT),
+                (wl_mod.OUT_PROJ, 64, 64, 1, wl_mod.N_PARTITION),
+                (wl_mod.MLP_UP, 64, 96, 2, wl_mod.N_PARTITION),
+                (wl_mod.MLP_DOWN, 96, 64, 1, wl_mod.N_PARTITION)):
+            wl = wl_mod.GEMMWorkload(stage=stage, m=1, k=k, n=n,
+                                     weight_bits=2, count=count,
+                                     shared_input=count > 1, mapping=mapping)
+            ops.append(SimpleNamespace(
+                workload=wl, weights=np.random.default_rng(count + n)
+                .integers(-1, 2, size=(count, k, n)).astype(np.int8)))
+        program = legion.lower_serve_step(ops, m=2, contexts=(3, 5),
+                                          heads=4, kv_heads=2, head_dim=16,
+                                          seed=1)
+        kw = {"device": "cpu"} if legion is tlegion else {}
+        if legion is tlegion:
+            grouped_calls.clear()
+        rep = legion.Machine(core.dlegion(), granularity="kernel",
+                             **kw).run(program)
+        ref = legion.reference_outputs(program)
+        for name, out in rep.outputs.items():
+            np.testing.assert_array_equal(out, ref[name])
+        reports.append((program, rep))
+    (jprog, jrep), (tprog, trep) = reports
+    assert len(grouped_calls) == len(tprog) == len(jprog)
+    assert sorted(bits for bits, _ in grouped_calls) == \
+        [2] * 4 + [8] * (len(tprog) - 4)
+    assert jrep.outputs.keys() == trep.outputs.keys()
+    for name in jrep.outputs:
+        np.testing.assert_array_equal(trep.outputs[name], jrep.outputs[name])
+    for name, sr in trep.stage_reports.items():
+        assert _asdict(sr.trace.totals) == \
+            _asdict(jrep.stage_reports[name].trace.totals)
+    assert trep.total_cycles == jrep.total_cycles

@@ -35,21 +35,40 @@ def _both(arrays):
             [torch.from_numpy(a) for a in arrays])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _first_exp_done():
+    """A fresh process's first float32 ``torch.exp`` on the CPU has been
+    seen off by ~1e-4 under heavy CPU load, never a later call of the same
+    process (``tools/first_exp_probe.py``); the 1e-4 parity checks here
+    would report that as a fault of the port's chunked plain version.
+    Make that first call before them."""
+    torch.exp(torch.linspace(-1.0, 0.0, 65536))
+
+
 # the JAX package's sweep shapes plus a chunk that is not a power of two
 @pytest.mark.parametrize("s,p,n,chunk", [(128, 32, 16, 32), (256, 64, 32, 64),
                                          (64, 16, 64, 64), (96, 24, 40, 24)])
-def test_plain_versions_match_pallas_kernel(s, p, n, chunk):
+def test_plain_versions_match_pallas_kernel(s, p, n, chunk, monkeypatch):
     (jd, jx, jb, jc), (td, tx, tb, tc) = _both(_inputs(3, s, p, n, s + n))
     y_pallas = np.asarray(jax_ssd(jd, jx, jb, jc, backend="pallas",
                                   chunk=chunk, interpret=True))
     y_chunk = ops.ssd(td, tx, tb, tc, chunk=chunk, backend="reference")
+    chunked = []
+
+    def spy(*args, **kwargs):
+        chunked.append(kwargs["chunk"])
+        return ssd_chunked_ref(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "ssd_chunked_ref", spy)
     y_auto = ops.ssd(td, tx, tb, tc, chunk=chunk)
+    monkeypatch.undo()
     y_naive = ops.ssd(td, tx, tb, tc, backend="naive")
     np.testing.assert_allclose(y_chunk.numpy(), y_pallas, **TOL)
     np.testing.assert_allclose(y_naive.numpy(), y_pallas, **TOL)
-    # the same plain version; ATen's CPU reductions are not bit-stable
-    # from call to call under thread contention
-    torch.testing.assert_close(y_auto, y_chunk, rtol=1e-6, atol=1e-6)
+    # "auto" on CPU tensors runs the chunked plain version at the chunk
+    # asked for, and agrees with the Pallas kernel
+    assert chunked == [chunk]
+    np.testing.assert_allclose(y_auto.numpy(), y_pallas, **TOL)
     np.testing.assert_allclose(
         y_naive.numpy(), np.asarray(jax_ssd(jd, jx, jb, jc, backend="naive")),
         **TOL)
