@@ -29,6 +29,27 @@ Phases, each printing one JSON line:
 5. window  — one decode step (m=1, context 16) at window granularity:
              outputs and tallies must equal kernel granularity, which must
              launch the bitlinear kernel once per integer stage.
+5b. serve_load — the same full BitNet-1.58B params served in-flight
+             (64-token prefill chunks merged with the decode batch), paged
+             (16 pages of 16 tokens: one max_seq=256 window, so requests
+             are preempted and re-prefilled) and admission-gated
+             (LiveAdmission at the card's memory) under a lognormal trace
+             of 8 requests replayed by obs.run_load, priced by a
+             LegionServeBackend(page_tokens=16) at kernel granularity:
+             every request completes, none is refused, >= 1 preemption,
+             bitlinear launches at bits 2 and 8, cross_validate(m=1,
+             context 256) worst error 0 with the page channel equal to
+             simulate(); one recorded merged step (chunks + decode) makes
+             one bitlinear launch per integer stage, and again under a
+             PipelinedExecutor with a TimelineTracer and a RooflineTracer
+             (serial and overlapped cycles equal the report's, page cells
+             present, every roofline efficiency <= 1; Chrome JSON in
+             build/); a 128-token prompt prefilled as 64 + 64 in bf16
+             within CHUNK_BF16_ATOL of the whole prefill; and reduced
+             BitNet-1.58B (float32, no quantization) through the same
+             engine on the card and on the CPU: equal tokens, step_log,
+             page tables, preemptions and backend tallies, last-chunk
+             logits within 1e-4.
 6. block_sparse — the block-sparse (ZTB) kernel against its plain version
              at the +ZTB path's shapes (BitNet-1.58B's qkv_proj and
              out_proj per-Legion slices at S=512, the granite-moe expert
@@ -101,6 +122,12 @@ BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 120 * 2**20      # > 2x the 50 MB L2
 ZTB_SEQ_LEN = 512                 # the paper evaluates S=2048 (PERF.md §4)
+# bf16 chunked (64 + 64) against whole prefill of a 128-token prompt at full
+# width: both round every product to bf16 on GEMMs of other shapes, so the
+# last logits (std ~1) differ by rounding noise (0.035-0.055 on the CPU at
+# 2-8 layers); a chunk attending from the wrong offset moves them by 5-6
+# (PERF.md §6, PR 16)
+CHUNK_BF16_ATOL = 0.5
 ZOO_ARCH = "granite-moe-1b-a400m"
 
 
@@ -560,6 +587,246 @@ def phase_window(cfg, params, kernel_backend):
           "launches_per_decode_step": per_step, "integer_stages": int_stages,
           "step_run_seconds": seconds, "tallies_equal": True,
           "outputs_equal": True, "stages": len(outputs["kernel"])})
+
+
+def paged_run(cfg, params, trace_seed: int, device=None):
+    """Reduced BitNet-1.58B through the serve_load engine settings on
+    ``device``: the lognormal trace priced by its own backend; returns
+    every engine and backend record the card-vs-CPU check compares."""
+    from repro_torch.core import dlegion
+    from repro_torch.models import build_model
+    from repro_torch.obs import lognormal_trace, run_load
+    from repro_torch.serve import (
+        LegionServeBackend, LiveAdmission, PagedKVCache, ServeEngine,
+    )
+
+    api = build_model(cfg, device=device)
+    chunk_logits = []             # every chunk's last logits, in call order
+
+    def prefill_chunk(*args):
+        logits, cache = api.prefill_chunk(*args)
+        chunk_logits.append(logits[:, -1].float().cpu())
+        return logits, cache
+    paged = PagedKVCache(page_tokens=16, total_pages=16)
+    backend = LegionServeBackend(
+        dlegion(8), cfg.replace(quantization="bitnet"), params,
+        granularity="kernel", page_tokens=16, device=device)
+    eng = ServeEngine(dataclasses.replace(api, prefill_chunk=prefill_chunk),
+                      params, max_slots=4, max_seq=256,
+                      prefill_chunk_tokens=64, paged_kv=paged,
+                      admission=LiveAdmission(backend,
+                                              hbm_bytes_per_chip=2 ** 30))
+    backend.attach(eng)
+    chunks, tables = [], []
+
+    def record(event):
+        chunks.extend(c["last"] for c in event.get("chunks", ()))
+        tables.append({u: paged.page_table(u)
+                       for u in paged.eviction_order()})
+    eng.step_observers.append(record)
+    _serial, step_cycles = backend.step_pipeline(4, (64,) * 4)
+    trace = lognormal_trace(
+        8, mean_interarrival_cycles=1.25 * step_cycles, mean_prompt=48,
+        mean_output=8, max_prompt=128, max_output=12, quantum=16,
+        seed=trace_seed)
+    summary = run_load(eng, backend, trace).summary()
+    return {
+        "summary": summary,
+        "outputs": sorted((r.uid, r.output) for r in eng.finished),
+        "step_log": eng.step_log, "preemptions": eng.preemptions,
+        "tables": tables, "backend": backend.summary(),
+        "per_request": {u: dataclasses.asdict(t)
+                        for u, t in backend.per_request.items()},
+        "last_logits": [lg for lg, last in zip(chunk_logits, chunks)
+                        if last],
+    }
+
+
+def phase_serve_load(cfg, params):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core import dlegion
+    from repro_torch.kernels.bitlinear import ops
+    from repro_torch.legion import Machine, PipelinedExecutor
+    from repro_torch.models import build_model
+    from repro_torch.obs import (
+        SLO, RooflineTracer, TimelineTracer, lognormal_trace, run_load,
+    )
+    from repro_torch.serve import (
+        LegionServeBackend, LiveAdmission, PagedKVCache, ServeEngine,
+    )
+
+    api = build_model(cfg)
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    backend = LegionServeBackend(dlegion(8), cfg, params,
+                                 granularity="kernel", page_tokens=16)
+    paged = PagedKVCache(page_tokens=16, total_pages=16)
+    eng = ServeEngine(api, params, max_slots=4, max_seq=256,
+                      prefill_chunk_tokens=64, paged_kv=paged,
+                      admission=LiveAdmission(backend,
+                                              hbm_bytes_per_chip=hbm))
+    backend.attach(eng)
+    if not backend.check_outputs:
+        raise AssertionError("serve_load must check every stage's output")
+    # time the backend's share of each step, and keep the merged steps
+    backend_s = [0.0]
+    merged = []
+    on_step = eng.step_observers.pop()
+
+    def timed(event):
+        t = time.perf_counter()
+        on_step(event)
+        backend_s[0] += time.perf_counter() - t
+        if event["kind"] == "step" and event["chunks"] and event["uids"]:
+            merged.append((
+                tuple((c["tokens"], c["pos0"] + c["tokens"])
+                      for c in event["chunks"]),
+                tuple(sorted(p + 1 for p in event["positions"]))))
+    eng.step_observers.append(timed)
+    _serial, step_cycles = backend.step_pipeline(4, (64,) * 4)
+    trace = lognormal_trace(
+        8, mean_interarrival_cycles=1.25 * step_cycles, mean_prompt=48,
+        mean_output=8, max_prompt=128, max_output=12, quantum=16, seed=2)
+    slo = SLO(ttft_cycles=40.0 * step_cycles,
+              per_token_cycles=4.0 * step_cycles)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report = run_load(eng, backend, trace, slo=slo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    s = report.summary(freq_hz=backend.cfg.freq_hz)
+    if (s["refused"] or s["requests"] != len(trace)
+            or s["completed"] != len(trace)):
+        raise AssertionError(f"serve_load: {s}")
+    if s["preempted"] < 1 or eng.preemptions != s["preempted"]:
+        raise AssertionError(f"no preemption under the tight pool: {s}")
+    for r in eng.finished:
+        if not r.done or len(r.output) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab for t in r.output):
+            raise AssertionError(f"request {r.uid}: output {r.output}")
+    if paged.stats().pinned_pages:
+        raise AssertionError(f"pages left pinned: {paged.stats()}")
+    if not (launches.get(2) and launches.get(8)):
+        raise AssertionError(f"bitlinear launches by bits {launches}")
+    tv, cv = backend.cross_validate(m=1, contexts=(256,))
+    page_eq = all(v.measured.page_fetches == v.analytic.page_fetches
+                  and v.measured.page_bytes == v.analytic.page_bytes
+                  for v in tv)
+    xval = max([e for v in tv for e in v.errors.values()]
+               + [v.rel_err for v in cv])
+    if not all(v.ok for v in tv + cv) or xval != 0 or not page_eq:
+        raise AssertionError(f"cross_validate: worst error {xval}, page "
+                             f"channel equal {page_eq}")
+    bsum = backend.summary()
+
+    # one merged step (chunks + decode): one launch per integer stage run
+    if not merged:
+        raise AssertionError("no step merged prefill chunks with decode")
+    chunks, contexts = merged[0]
+    prog = backend.step_program_mixed(chunks, contexts)
+    ops.reset_launches()
+    backend.machine.run(prog, validate=False)
+    torch.cuda.synchronize()
+    step_launches = sum(ops.LAUNCHES.values())
+    if step_launches != len(prog):
+        raise AssertionError(f"merged step {merged[0]}: {step_launches} "
+                             f"bitlinear launches for {len(prog)} stages")
+    accel = dlegion(8)
+    timeline, roof = TimelineTracer(accel), RooflineTracer(accel)
+    traced = Machine(accel, backend=PipelinedExecutor(),
+                     granularity="kernel", instruments=[timeline, roof])
+    rep = traced.run(prog, validate=False)
+    page_cells = sum(c.page_fetches for c in timeline.programs[-1]
+                     .cells.values())
+    eff = max(p.efficiency for p in roof.rows())
+    if (timeline.serial_cycles() != rep.serial_cycles
+            or timeline.overlapped_cycles() != rep.total_cycles
+            or rep.pipeline is None
+            or rep.pipeline.overlapped_cycles != rep.total_cycles
+            or not page_cells or eff > 1):
+        raise AssertionError(
+            f"tracers: serial {timeline.serial_cycles()} vs "
+            f"{rep.serial_cycles}, overlapped {timeline.overlapped_cycles()}"
+            f" vs {rep.total_cycles}, page cells {page_cells}, "
+            f"max efficiency {eff}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    timeline.export(os.path.join(ROOT, "build",
+                                 "serve_load_merged_step.json"))
+
+    # full width: a 128-token prompt as 64 + 64 against the whole prefill
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, size=(1, 128))).to(api.device)
+    whole, _ = api.prefill(params, {"tokens": prompt},
+                           api.init_cache(1, 256))
+    cache = api.init_cache(1, 256)
+    _lg, cache = api.prefill_chunk(params, prompt[:, :64], cache, 0)
+    part, cache = api.prefill_chunk(params, prompt[:, 64:], cache, 64)
+    chunk_diff = float((part.float() - whole.float()).abs().max())
+    top1 = int(part.argmax()) == int(whole.argmax())
+    if not bool(torch.isfinite(part).all()) or chunk_diff > CHUNK_BF16_ATOL:
+        raise AssertionError(f"bf16 chunked vs whole prefill: max abs diff "
+                             f"{chunk_diff} > {CHUNK_BF16_ATOL}")
+    del whole, part, cache
+
+    # reduced BitNet-1.58B (float32, no quantization, whose int8 rounding
+    # would turn float32 ulps into whole steps) on the card and the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = reduced(cfg).replace(dtype="float32", quantization="none")
+    p_cpu = build_model(small, device="cpu").init(0)
+    runs = {"cpu": paged_run(small, p_cpu, 2, device="cpu"),
+            "card": paged_run(small, params_from_jax(_numpy_tree(p_cpu)),
+                              2)}
+    card, cpu = runs["card"], runs["cpu"]
+    same = {k: card[k] == cpu[k] for k in (
+        "outputs", "step_log", "preemptions", "tables", "backend",
+        "per_request", "summary")}
+    logit_diff = max(float((a - b).abs().max()) for a, b in zip(
+        card["last_logits"], cpu["last_logits"]))
+    if (not all(same.values()) or card["preemptions"] < 1
+            or len(card["last_logits"]) != len(cpu["last_logits"])
+            or logit_diff > 1e-4):
+        raise AssertionError(f"card vs CPU paged in-flight engine: equal "
+                             f"{same}, preemptions {card['preemptions']}, "
+                             f"last-chunk logits {logit_diff}")
+
+    tokens = sum(len(r.output) for r in eng.finished)
+    emit({"phase": "serve_load", "model": cfg.name, "layers": cfg.layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "requests": s["requests"], "completed": s["completed"],
+          "refused": s["refused"], "deferred": s["deferred"],
+          "preempted": s["preempted"], "goodput": s["goodput"],
+          "engine_steps": bsum["engine_steps"],
+          "merged_steps": len(merged),
+          "p50_ttft_cycles": s["p50_ttft_cycles"],
+          "p99_ttft_cycles": s["p99_ttft_cycles"],
+          "p50_tok_cycles": s["p50_tok_cycles"],
+          "p99_tok_cycles": s["p99_tok_cycles"],
+          "mean_occupancy": s["mean_occupancy"],
+          "page_fetch_bytes": bsum["page_fetch_bytes"],
+          "page_waste_frac": bsum["page_waste_frac"],
+          "page_xval_err": xval, "wall_seconds": wall,
+          "legion_backend_seconds": backend_s[0],
+          "tokens": tokens, "tokens_per_s": tokens / wall,
+          "bitlinear_launches_by_bits": launches,
+          "merged_step": {"chunks": chunks, "decode_contexts": contexts,
+                          "stages": len(prog),
+                          "bitlinear_launches": step_launches,
+                          "serial_cycles": rep.serial_cycles,
+                          "overlapped_cycles": rep.total_cycles,
+                          "page_fetches": page_cells,
+                          "max_roofline_efficiency": eff},
+          "chunk_bf16_max_abs_diff": chunk_diff, "chunk_bf16_top1": top1,
+          "chunk_bf16_tolerance": CHUNK_BF16_ATOL,
+          "reduced_card_vs_cpu_equal": same,
+          "reduced_last_chunk_logit_diff": logit_diff,
+          "peak_memory_bytes": peak})
+    return launches
 
 
 def block_sparse_shapes():
@@ -1182,6 +1449,7 @@ def main() -> int:
     phase_model()
     cfg, params, backend, launches = phase_serve()
     phase_window(cfg, params, backend)
+    load_launches = phase_serve_load(cfg, params)
     bs_rows = phase_block_sparse()
     bs_launches = {"ztb": phase_ztb(), "zoo": phase_zoo()}
     del params, backend                 # release BitNet-1.58B
@@ -1201,8 +1469,12 @@ def main() -> int:
         "name": "bitlinear", "route": "cuda", "redesigned": 15,
         "source": "src/repro_torch/csrc/bitlinear.cu",
         "replaces": "src/repro/kernels/bitlinear/kernel.py:75",
-        "launches": sum(launches.values()),
-        "launches_by_bits": launches,
+        "launches": sum(launches.values()) + sum(load_launches.values()),
+        "launches_by_bits": {b: launches.get(b, 0) + load_launches.get(b, 0)
+                             for b in sorted(set(launches)
+                                             | set(load_launches))},
+        "launches_by_phase": {"serve": sum(launches.values()),
+                              "serve_load": sum(load_launches.values())},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "shape": {k: head[k] for k in ("stage", "m", "k", "n", "bits")},
         "ms": head["ms"], "plain_ms": head["plain_ms"],

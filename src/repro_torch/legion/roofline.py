@@ -19,8 +19,8 @@ closed answer.  This module asks it systematically:
   trace-event counter track.
 
 The per-stage roofline view (arithmetic intensity, attained vs peak
-OPs/cycle) lives in the JAX package's ``obs.roofline``, not ported yet;
-this module owns the whole-workload bandwidth axis.  The port's one
+OPs/cycle) lives in ``repro_torch.obs.roofline``; this module owns the
+whole-workload bandwidth axis.  The port's one
 addition: :func:`sweep_bandwidth` takes the ``device`` its Machines run
 on.
 """

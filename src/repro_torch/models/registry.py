@@ -26,7 +26,8 @@ class ModelAPI:
     init_cache: Callable           # (batch, max_seq) -> cache
     prefill: Callable              # (params, batch, cache) -> (logits, cache)
     decode: Optional[Callable]     # (params, token, cache, pos) -> (logits, cache)
-    # chunked in-flight prefill waits for the slice that ports it
+    # (params, tokens [B,C], cache, pos0) -> (logits, cache); chunked
+    # in-flight prefill — only decoder transformers support it.
     prefill_chunk: Optional[Callable] = None
 
 
@@ -55,6 +56,12 @@ def build_model(cfg, *, device: DeviceLike = None) -> ModelAPI:
         )
     device = resolve_device(device)
     m = _MODULES[cfg.family]
+    prefill_chunk = None
+    if cfg.family == "dense" and cfg.frontend not in ("audio_frames",
+                                                      "vision_patches"):
+        prefill_chunk = (lambda params, tokens, cache, pos0:
+                         transformer.forward_prefill_chunk(
+                             cfg, params, tokens, cache, pos0))
     return ModelAPI(
         cfg=cfg,
         device=device,
@@ -68,4 +75,5 @@ def build_model(cfg, *, device: DeviceLike = None) -> ModelAPI:
             cfg, params, batch, cache),
         decode=lambda params, token, cache, pos: m.forward_decode(
             cfg, params, token, cache, pos),
+        prefill_chunk=prefill_chunk,
     )

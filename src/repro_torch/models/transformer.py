@@ -156,6 +156,26 @@ def forward_prefill(cfg, params, batch, cache: KVCache):
     return logits, new_cache
 
 
+def forward_prefill_chunk(cfg, params, tokens, cache: KVCache, pos0: int):
+    """One fixed-budget slice of an in-flight prefill.
+
+    tokens [B, C] int, ``pos0`` an int: writes rows ``[pos0, pos0 + C)`` of
+    the cache in place (and no other row) and attends causally over
+    everything at or below each chunk position — earlier chunks already
+    live in the cache below ``pos0``.  Returns (last_logits [B, 1, V],
+    cache); the logits are only meaningful on a prompt's final chunk.
+    """
+    _check_family(cfg)
+    pos0 = int(pos0)
+    x = params["embed"]["tokens"][tokens]
+    b, c = tokens.shape
+    positions = (pos0 + torch.arange(c, dtype=torch.int32, device=x.device)
+                 )[None].expand(b, c)
+    x, new_cache = _run_blocks(cfg, params["blocks"], x, positions,
+                               caches=cache, cache_pos=pos0)
+    return _logits(cfg, params, x[:, -1:, :]), new_cache
+
+
 def forward_decode(cfg, params, token, cache: KVCache, pos):
     """One decode step. token [B] int, pos an int or per-slot [B] int
     tensor.  Returns (logits [B, 1, V], new_cache)."""

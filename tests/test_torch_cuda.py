@@ -510,3 +510,51 @@ def test_flash_bf16_refuses_what_tma_cannot_load(card):
     fa.flash_attention(good, good, good)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["bfloat16"] == before + 1
+
+
+@pytest.mark.cuda
+def test_chunked_prefill_on_card_against_whole_and_cpu(card):
+    """Reduced BitNet-1.58B in float32 without quantization (its int8
+    activation rounding would turn float32 ulps into whole steps): a
+    40-token prompt prefilled as chunks of 16 + 16 + 8 on the card against
+    the whole prefill on the card and the same chunks on the CPU, logits
+    and cache within 1e-4 (float32 summed in other orders), and no cache
+    row past the prompt written."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("bitnet-1.58b")).replace(
+        dtype="float32", quantization="none")
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=card)
+    p_cpu = cpu.init(0)
+    p_gpu = params_from_jax(_numpy_tree(p_cpu), device=card)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab, size=(1, 40)))
+
+    def chunked(api, params, device):
+        cache, pos0 = api.init_cache(1, 64), 0
+        for c in (16, 16, 8):
+            lg, cache = api.prefill_chunk(
+                params, prompt[:, pos0:pos0 + c].to(device), cache, pos0)
+            pos0 += c
+        return lg, cache
+
+    lg_g, cache_g = chunked(gpu, p_gpu, card)
+    lg_c, cache_c = chunked(cpu, p_cpu, "cpu")
+    lg_w, cache_w = gpu.prefill(p_gpu, {"tokens": prompt.to(card)},
+                                gpu.init_cache(1, 64))
+    torch.cuda.synchronize()
+    for got, want in ((lg_g, lg_w), (lg_g.cpu(), lg_c)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    for a, b, c in zip(cache_g, cache_w, cache_c):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=1e-4)
+        assert not a[:, :, :, 40:].any()
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy()

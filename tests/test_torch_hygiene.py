@@ -42,6 +42,10 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.models.hybrid\n"
         "import repro_torch.kernels.ssd.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.obs.metrics, repro_torch.obs.timeline\n"
+        "import repro_torch.obs.roofline, repro_torch.obs.loadgen\n"
+        "from repro_torch.obs import TimelineTracer, run_load\n"
+        "import repro_torch.serve.paged_kv, repro_torch.serve.admission\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -104,9 +104,30 @@ def test_kernel_and_window_granularity_agree(served):
 
 
 def test_engine_rejects_unported_modes():
+    """In-flight batching, paged KV and admission are ported
+    (tests/test_torch_inflight.py, test_torch_paged_kv.py); what the
+    engine still rejects, as the JAX engine does: a chunk budget below 1,
+    chunked prefill for a family without it, a page pool that cannot back
+    one max_seq window, and an admission verdict it does not know."""
+    from repro_torch.serve import PagedKVCache
+
     tcfg = tconfigs.reduced(tconfigs.get_config("bitnet-1.58b"))
     api = build_model(tcfg, device="cpu")
-    for kw in ({"prefill_chunk_tokens": 4}, {"paged_kv": object()},
-               {"admission": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(api, {}, **kw)
+    with pytest.raises(ValueError, match=">= 1"):
+        ServeEngine(api, {}, prefill_chunk_tokens=0)
+    ssm = build_model(tconfigs.reduced(tconfigs.get_config("mamba2-130m")),
+                      device="cpu")
+    with pytest.raises(ValueError, match="no chunked prefill"):
+        ServeEngine(ssm, {}, prefill_chunk_tokens=4)
+    with pytest.raises(ValueError, match="cannot back one"):
+        ServeEngine(api, {}, max_seq=64,
+                    paged_kv=PagedKVCache(total_pages=3, page_tokens=16))
+
+    class Shrug:
+        def decide(self, engine, request):
+            return "maybe"
+
+    eng = ServeEngine(api, api.init(0), max_seq=32, admission=Shrug())
+    eng.submit(np.arange(1, 5), max_new_tokens=2)
+    with pytest.raises(ValueError, match="'maybe'"):
+        eng.step()
