@@ -98,6 +98,36 @@ Phases, each printing one JSON line:
              flash (14 shared-attention applications x 2 long prompts).
              Then one 4096-token prefill again under torch.profiler: the
              device time of every kernel and of the SSD and flash kernels.
+             (Phase 10 also holds the flash kernel, bf16 against the
+             float32 plain version, at the long prefills of the three
+             families below: granite-moe-3b-a800m H 24 / Hkv 8, d 64,
+             causal; hubert-xlarge H = Hkv = 16, d 80, non-causal;
+             internvl2-76b H 64 / Hkv 8, d 128, causal; S = 4096.)
+13. moe_serve — full granite-moe-3b-a800m (32 layers, d_model 1536, 40
+             experts padded to 48, top-8, bf16, random weights from a
+             seeded torch.Generator) through ServeEngine (4 slots, max_seq
+             4352): prompts of 4096, 23, 4096 and 16 tokens x 16 tokens;
+             exactly 64 flash launches (32 layers x 2 long prompts), every
+             request finished; then the same params in-flight (64-token
+             chunks) on 4 prompts of 40-200 tokens x 8 tokens.
+14. encoder — full hubert-xlarge (48 layers, d_model 1280, 16 heads of
+             d = 80, bf16): train_logits and prefill on 4096 frames in the
+             config's type, exactly 48 (non-causal) flash launches each;
+             a changed last frame moves frame 0's logits; ServeEngine
+             refuses the encoder-only model.
+15. vlm     — internvl2-76b at full width, 8 of its 80 layers (d_model
+             8192, GQA 64 / 8, d = 128, d_ff 28672, bf16): a prefill of 256
+             patch embeddings + 3840 text tokens (exactly 8 flash
+             launches), 8 decode steps, logits over 4096 positions and a
+             finite loss over the last 3840.
+16. families_model — reduced granite-moe-3b-a800m (experts padded to 12),
+             hubert-xlarge and internvl2-76b (float32, no quantization) on
+             the card against the CPU: the MoE's routed experts of every
+             layer equal but at near-ties (k-th and (k+1)-th router
+             probabilities within 1e-5 on the CPU), its logits within 1e-4
+             where all agree (64-token prefill, 3 decode steps); the
+             encoder at 3072 frames (float32 flash kernel, non-causal) and
+             the VLM at 256 patches + 2816 tokens, logits within 1e-4.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -1203,14 +1233,21 @@ def phase_flash():
     # bf16 is held against the plain version in float32 on the same values:
     # the kernel's math is float32, so the two differ by the output's one
     # bf16 rounding (at most 2^-8 relative) and float32 summation order
-    shapes = (("zamba2-7b prefill", 32, 32, 4096, 112, torch.bfloat16,
-               dict(rtol=8e-3, atol=2e-5)),
-              ("zamba2-7b prefill f32", 32, 32, 1024, 112, torch.float32,
-               dict(rtol=2e-4, atol=2e-5)),
-              ("gqa", 32, 8, 1024, 128, torch.float32,
-               dict(rtol=2e-4, atol=2e-5)))
+    bf16, f32 = dict(rtol=8e-3, atol=2e-5), dict(rtol=2e-4, atol=2e-5)
+    shapes = (("zamba2-7b prefill", 32, 32, 4096, 112, True, torch.bfloat16,
+               bf16),
+              ("zamba2-7b prefill f32", 32, 32, 1024, 112, True,
+               torch.float32, f32),
+              ("gqa", 32, 8, 1024, 128, True, torch.float32, f32),
+              # the long prefills of the moe, encoder and vlm families
+              ("granite-moe-3b-a800m prefill", 24, 8, 4096, 64, True,
+               torch.bfloat16, bf16),
+              ("hubert-xlarge", 16, 16, 4096, 80, False, torch.bfloat16,
+               bf16),
+              ("internvl2-76b prefill", 64, 8, 4096, 128, True,
+               torch.bfloat16, bf16))
     rows = []
-    for label, h, hkv, s, d, dtype, tol in shapes:
+    for label, h, hkv, s, d, causal, dtype, tol in shapes:
         rng = np.random.default_rng(s + h + hkv + d)
         # [B, S, H, d] tensors handed over as [B, H, S, d] views, as the
         # attention layer does
@@ -1219,11 +1256,11 @@ def phase_flash():
                 device="cuda", dtype=dtype).transpose(1, 2)
             for heads in (h, hkv, hkv))
         call = lambda i: fa.flash_attention(q, k, v,          # noqa: E731
-                                            causal=True)
+                                            causal=causal)
         plain = lambda cast: attention_ref(                   # noqa: E731
             cast(q).reshape(h, s, d), cast(k).reshape(hkv, s, d),
             cast(v).reshape(hkv, s, d), q_heads=h, kv_heads=hkv,
-            causal=True).reshape(1, h, s, d)
+            causal=causal).reshape(1, h, s, d)
         got = call(0).float()
         want = plain(lambda t: t.float())
         torch.cuda.synchronize()
@@ -1236,11 +1273,11 @@ def phase_flash():
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
         kw = {"enable_gqa": True} if hkv != h else {}
         iters = 10 if s > 1024 else 30
-        bound, by = flash_bound(1, h, hkv, s, s, d, True,
+        bound, by = flash_bound(1, h, hkv, s, s, d, causal,
                                 2 if dtype == torch.bfloat16 else 4)
         rows.append({
             "shape": label, "b": 1, "h": h, "hkv": hkv, "s": s, "d": d,
-            "dtype": str(dtype)[6:], "causal": True, "max_abs_err": err,
+            "dtype": str(dtype)[6:], "causal": causal, "max_abs_err": err,
             "median_abs_want": median_want, "tolerance": tol,
             "ms": cuda_ms(call, iters),
             # by type, so that a late event of the other kernel never counts
@@ -1248,7 +1285,7 @@ def phase_flash():
                                    == torch.bfloat16 else "flash_kernel_f32"),
             "plain_ms": cuda_ms(lambda i: plain(lambda t: t), 3),
             "library_ms": cuda_ms(lambda i: F.scaled_dot_product_attention(
-                qc, kc, vc, is_causal=True, **kw), iters),
+                qc, kc, vc, is_causal=causal, **kw), iters),
             "bound_ms": bound, "bound_by": by,
         })
     for r in rows:
@@ -1316,6 +1353,32 @@ def phase_hybrid_model():
               "state_max_abs_diff": state_err, "tolerance": 1e-4})
 
 
+def timed_api(api):
+    """``api`` with its prefill, decode and chunked prefill timed apart
+    (host clock; the logits' finiteness check synchronises) and every
+    call's logits checked finite; returns (api, seconds by kind, calls by
+    kind)."""
+    import torch
+
+    clock = {"prefill": 0.0, "decode": 0.0, "prefill_chunk": 0.0}
+    calls = dict.fromkeys(clock, 0)
+
+    def timed(kind, fn):
+        def run(*args):
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"non-finite {kind} logits")
+            clock[kind] += time.perf_counter() - t
+            calls[kind] += 1
+            return logits, cache
+        return run if fn is not None else None
+    return dataclasses.replace(
+        api, prefill=timed("prefill", api.prefill),
+        decode=timed("decode", api.decode),
+        prefill_chunk=timed("prefill_chunk", api.prefill_chunk)), clock, calls
+
+
 def traced_prefill(api, params, prompt, max_seq):
     """One single-request prefill as ServeEngine runs it, under
     torch.profiler: its wall seconds (profiler on) and the device time
@@ -1363,33 +1426,13 @@ def phase_hybrid_serve():
     from repro_torch.models import build_model
     from repro_torch.models.hybrid import n_attn_apps
     from repro_torch.serve import ServeEngine
-    from repro_torch.serve.engine import prepare_params
 
     cfg = get_config("zamba2-7b")
     api = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=api.device)
-    gen.manual_seed(0)
-    params = prepare_params(api.init(gen))
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
-    # time prefill and decode apart, and check every prefill's logits
-    clock = {"prefill": 0.0, "decode": 0.0}
-
-    def timed(kind, fn):
-        def run(*args):
-            t = time.perf_counter()
-            logits, cache = fn(*args)
-            if not bool(torch.isfinite(logits).all()):
-                raise AssertionError(f"non-finite {kind} logits")
-            clock[kind] += time.perf_counter() - t
-            return logits, cache
-        return run
+    params, setup_s, n_params = full_params(api)
     plain_api = api
-    api = dataclasses.replace(api, prefill=timed("prefill", api.prefill),
-                              decode=timed("decode", api.decode))
+    api, clock, _ = timed_api(api)
     eng = ServeEngine(api, params, max_slots=4, max_seq=4352)
     rng = np.random.default_rng(0)
     lengths = (4096, int(rng.integers(4, 24)), 4096, int(rng.integers(4, 24)))
@@ -1403,12 +1446,7 @@ def phase_hybrid_serve():
     wall = time.perf_counter() - t0
     launches = {"ssd": sum(ssd_ops.LAUNCHES.values()),
                 "flash": sum(fa.LAUNCHES.values())}
-    if len(done) != len(reqs) or not all(r.done for r in reqs):
-        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
-    for r in reqs:
-        if len(r.output) != 16 or not all(0 <= t < cfg.vocab
-                                          for t in r.output):
-            raise AssertionError(f"request {r.uid}: output {r.output}")
+    _check_done(reqs, done, 16, cfg.vocab)
     long_prompts = sum(n > 2048 for n in lengths)
     want = {"ssd": cfg.layers * len(reqs),
             "flash": n_attn_apps(cfg) * long_prompts}
@@ -1432,6 +1470,365 @@ def phase_hybrid_serve():
     return launches
 
 
+def full_params(api):
+    """Random parameters of ``api``'s config (bf16) from a seeded
+    torch.Generator on the card, ternary-prepared for serving: (params,
+    seconds that took, parameter count)."""
+    import torch
+
+    from repro_torch.serve.engine import prepare_params
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=api.device)
+    gen.manual_seed(0)
+    params = prepare_params(api.init(gen))
+    torch.cuda.synchronize()
+    return (params, time.perf_counter() - t0,
+            sum(t.numel() for t in _leaves(params)))
+
+
+def _check_done(reqs, done, new_tokens, vocab):
+    if len(done) != len(reqs) or not all(r.done for r in reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
+    for r in reqs:
+        if len(r.output) != new_tokens or not all(0 <= t < vocab
+                                                  for t in r.output):
+            raise AssertionError(f"request {r.uid}: output {r.output}")
+
+
+def phase_moe_serve():
+    """Full granite-moe-3b-a800m through ServeEngine: legacy mode with two
+    4096-token prompts (every layer's attention on the flash kernel), then
+    the same params in-flight (64-token chunks)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("granite-moe-3b-a800m")
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, setup_s, n_params = full_params(api)
+    tapi, clock, _ = timed_api(api)
+    eng = ServeEngine(tapi, params, max_slots=4, max_seq=4352)
+    rng = np.random.default_rng(0)
+    lengths = (4096, 23, 4096, 16)
+    reqs = [eng.submit(rng.integers(1, cfg.vocab, size=n), max_new_tokens=16)
+            for n in lengths]
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sum(fa.LAUNCHES.values())
+    _check_done(reqs, done, 16, cfg.vocab)
+    want = cfg.layers * sum(n > 2048 for n in lengths)
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want}")
+    tokens = sum(len(r.output) for r in done)
+    legacy = {"prompt_tokens": list(lengths), "tokens": tokens,
+              "wall_seconds": wall, "tokens_per_s": tokens / wall,
+              "prefill_seconds": clock["prefill"],
+              "decode_seconds": clock["decode"],
+              "decode_steps": len(eng.decode_batch_sizes),
+              "flash_launches": launches}
+    del eng
+    legacy["traced_prefill"] = traced_prefill(api, params, reqs[0].prompt,
+                                              4352)
+
+    tapi, clock, calls = timed_api(api)
+    eng = ServeEngine(tapi, params, max_slots=4, max_seq=256,
+                      prefill_chunk_tokens=64)
+    lengths = [int(n) for n in rng.integers(40, 201, size=4)]
+    reqs = [eng.submit(rng.integers(1, cfg.vocab, size=n), max_new_tokens=8)
+            for n in lengths]
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_done(reqs, done, 8, cfg.vocab)
+    if calls["prefill_chunk"] == 0:
+        raise AssertionError("the in-flight run called no prefill_chunk")
+    tokens = sum(len(r.output) for r in done)
+    emit({"phase": "moe_serve", "model": cfg.name, "layers": cfg.layers,
+          "d_model": cfg.d_model,
+          "experts": [cfg.n_experts, cfg.n_experts_total],
+          "top_k": cfg.top_k, "dtype": cfg.dtype, "params": n_params,
+          "setup_seconds": setup_s, "legacy": legacy,
+          "inflight": {"prompt_tokens": lengths, "chunk_tokens": 64,
+                       "tokens": tokens, "wall_seconds": wall,
+                       "tokens_per_s": tokens / wall,
+                       "prefill_chunk_calls": calls["prefill_chunk"],
+                       "prefill_chunk_seconds": clock["prefill_chunk"],
+                       "decode_seconds": clock["decode"],
+                       "steps": len(eng.step_log)},
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return launches
+
+
+def phase_encoder():
+    """Full hubert-xlarge on one batch of 4096 frames (82 s of 16 kHz audio
+    at 20 ms a frame), given in the config's type as make_batch_spec gives
+    them: train_logits and prefill, every layer's non-causal attention on
+    the flash kernel; the model is bidirectional and cannot be served."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.common import dtype_of
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("hubert-xlarge")
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, setup_s, n_params = full_params(api)
+    s = 4096
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, s, cfg.d_model)).astype(np.float32)).to(api.device,
+                                                    dtype_of(cfg))
+    seconds, launches = {}, {}
+
+    def run(name, fn):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = sum(fa.LAUNCHES.values())
+        if launches[name] != cfg.layers:
+            raise AssertionError(f"{name}: {launches[name]} flash launches, "
+                                 f"expected {cfg.layers}")
+        return out
+
+    logits = run("train_logits",
+                 lambda: api.train_logits(params, {"frames": frames}))
+    last, _ = run("prefill", lambda: api.prefill(
+        params, {"frames": frames}, api.init_cache(1, s)))
+    if (tuple(logits.shape) != (1, s, cfg.vocab)
+            or tuple(last.shape) != (1, 1, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())
+            or not bool(torch.isfinite(last).all())):
+        raise AssertionError(f"logits {tuple(logits.shape)}, "
+                             f"{tuple(last.shape)}")
+    moved = frames.clone()
+    moved[:, -1] = 5.0
+    moved_logits = run("train_logits_moved",
+                       lambda: api.train_logits(params, {"frames": moved}))
+    frame0_shift = float((moved_logits[:, 0] - logits[:, 0]).abs().max())
+    if frame0_shift == 0:
+        raise AssertionError("the last frame does not reach frame 0's logits")
+    try:
+        ServeEngine(api, params)
+    except ValueError as err:
+        if "encoder-only; no decode" not in str(err):
+            raise
+    else:
+        raise AssertionError("ServeEngine took an encoder-only model")
+    emit({"phase": "encoder", "model": cfg.name, "layers": cfg.layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "head_dim": cfg.head_dim_, "dtype": cfg.dtype, "params": n_params,
+          "setup_seconds": setup_s, "frames": s, "seconds": seconds,
+          "flash_launches": launches,
+          "last_vs_prefill_max_abs_diff": float(
+              (logits[:, -1:] - last).abs().max()),
+          "frame0_shift": frame0_shift,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return launches["prefill"]
+
+
+def phase_vlm():
+    """internvl2-76b at full width, 8 of its 80 layers: a prefill of 256
+    patch embeddings and 3840 text tokens (every layer's attention on the
+    flash kernel), 8 decode steps, and the loss over the text."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cross_entropy, dtype_of
+
+    full = get_config("internvl2-76b")
+    cfg = full.replace(layers=8)
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, setup_s, n_params = full_params(api)
+    s, text = 4096, 4096 - cfg.num_patches
+    rng = np.random.default_rng(0)
+    batch = {
+        "tokens": torch.from_numpy(rng.integers(
+            1, cfg.vocab, size=(1, text))).to(api.device),
+        "patch_embeds": torch.from_numpy(rng.standard_normal(
+            (1, cfg.num_patches, cfg.d_model)).astype(np.float32)).to(
+                api.device, dtype_of(cfg)),
+        "targets": torch.from_numpy(rng.integers(
+            1, cfg.vocab, size=(1, text))).to(api.device),
+    }
+    cache = api.init_cache(1, s + 8)
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = sum(fa.LAUNCHES.values())
+    if launches != cfg.layers:
+        raise AssertionError(f"prefill: {launches} flash launches, expected "
+                             f"{cfg.layers}")
+    t0 = time.perf_counter()
+    for step in range(8):
+        if not bool(torch.isfinite(logits).all()) or tuple(
+                logits.shape) != (1, 1, cfg.vocab):
+            raise AssertionError(f"step {step}: logits "
+                                 f"{tuple(logits.shape)}")
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        logits, cache = api.decode(params, tok, cache, s + step)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite decode logits")
+    full_logits = api.train_logits(params, batch)
+    loss = float(api.loss(params, batch))
+    over_text = float(cross_entropy(full_logits[:, cfg.num_patches:],
+                                    batch["targets"]))
+    if (tuple(full_logits.shape) != (1, s, cfg.vocab)
+            or not np.isfinite(loss) or abs(loss - over_text) > 1e-3):
+        raise AssertionError(f"logits {tuple(full_logits.shape)}, loss "
+                             f"{loss}, over the text {over_text}")
+    emit({"phase": "vlm", "model": cfg.name, "layers": cfg.layers,
+          "reduced": {"layers": [full.layers, cfg.layers]},
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.kv_heads],
+          "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
+          "params": n_params, "setup_seconds": setup_s,
+          "patches": cfg.num_patches, "text_tokens": text,
+          "prefill_seconds": prefill_s, "decode_steps": 8,
+          "decode_seconds": decode_s, "flash_launches": launches,
+          "loss": loss, "loss_over_text": over_text,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return launches
+
+
+def routing_flips(idx_a, idx_b, probs, k, tol=1e-5):
+    """Tokens whose routed experts differ between two runs, and the
+    smallest margin between the k-th and (k+1)-th router probabilities
+    (``probs`` from the CPU) over all tokens.  A flip is allowed only at
+    such a near-tie: it raises unless that token's margin is within
+    ``tol``."""
+    import torch
+
+    top = torch.sort(probs, dim=-1, descending=True).values
+    margin = top[..., k - 1] - top[..., k]
+    flipped = (idx_a != idx_b).any(dim=-1)
+    if bool((margin[flipped] > tol).any()):
+        raise AssertionError(f"routing flipped at margins "
+                             f"{margin[flipped].tolist()}")
+    return int(flipped.sum()), float(margin.min())
+
+
+def phase_families_model():
+    """The moe, encoder and vlm model math on the card against the CPU:
+    reduced configs in float32 without quantization.  MoE: a 64-token
+    prefill and 3 decode steps, the routed experts of every layer compared
+    (a flip only at a near-tie); encoder: 3072 frames (the float32 flash
+    kernel, non-causal); VLM: 256 patches + 2816 tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model, moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def pair(cfg):
+        cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
+        p_cpu = cpu.init(0)
+        return cpu, p_cpu, gpu, params_from_jax(_numpy_tree(p_cpu))
+
+    # MoE, with dummy experts present
+    cfg = reduced(get_config("granite-moe-3b-a800m")).replace(
+        n_experts_padded=12, dtype="float32", quantization="none")
+    cpu, p_cpu, gpu, p_gpu = pair(cfg)
+    routes = {"cpu": [], "cuda": []}
+    route = moe.route
+
+    def recorded(p, cfg_, x):
+        probs, gates, idx = route(p, cfg_, x)
+        routes[x.device.type].append((probs.cpu(), idx.cpu()))
+        return probs, gates, idx
+    moe.route = recorded
+    try:
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            1, cfg.vocab, size=(2, 64)))
+        lc, cc = cpu.prefill(p_cpu, {"tokens": toks}, cpu.init_cache(2, 72))
+        lg, cg = gpu.prefill(p_gpu, {"tokens": toks.cuda()},
+                             gpu.init_cache(2, 72))
+        worst, pos = 0.0, torch.tensor([64, 64])
+        for _ in range(3):
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+            tok = torch.argmax(lc[:, -1], dim=-1)
+            lc, cc = cpu.decode(p_cpu, tok, cc, pos)
+            lg, cg = gpu.decode(p_gpu, tok.cuda(), cg, pos.cuda())
+            pos = pos + 1
+        worst = max(worst, float((lg.cpu() - lc).abs().max()))
+    finally:
+        moe.route = route
+    if len(routes["cpu"]) != 4 * cfg.layers or len(routes["cuda"]) != len(
+            routes["cpu"]):
+        raise AssertionError(f"routed {len(routes['cpu'])} / "
+                             f"{len(routes['cuda'])} MoE calls")
+    flips, margin = 0, float("inf")
+    for (probs, idx_c), (_, idx_g) in zip(routes["cpu"], routes["cuda"]):
+        n, m = routing_flips(idx_g, idx_c, probs, cfg.top_k)
+        flips, margin = flips + n, min(margin, m)
+    # float32 on both, summed in other orders: 1e-4 absolute on logits,
+    # held where every routed expert agrees
+    if flips == 0 and worst > 1e-4:
+        raise AssertionError(f"moe card vs CPU: max abs diff {worst}")
+    emit({"phase": "families_model", "config": cfg.name, "dtype": "float32",
+          "experts": [cfg.n_experts, cfg.n_experts_total],
+          "prompt_tokens": 64, "batch": 2, "decode_steps": 3,
+          "moe_calls": len(routes["cpu"]), "routing_flips": flips,
+          "smallest_kth_margin": margin, "max_abs_diff_vs_cpu": worst,
+          "logits_compared": flips == 0, "tolerance": 1e-4})
+
+    for arch in ("hubert-xlarge", "internvl2-76b"):
+        s = 3072
+        cfg = reduced(get_config(arch)).replace(dtype="float32",
+                                                quantization="none")
+        if cfg.frontend == "vision_patches":
+            cfg = cfg.replace(num_patches=256)
+        cpu, p_cpu, gpu, p_gpu = pair(cfg)
+        batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+            cfg, batch=2, seq=s, step=0).items() if k != "targets"}
+        lc = cpu.train_logits(p_cpu, batch)
+        fa.reset_launches()
+        lg = gpu.train_logits(p_gpu, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        if launches != {"float32": cfg.layers, "bfloat16": 0}:
+            raise AssertionError(f"{arch}: flash launches {launches}")
+        if tuple(lg.shape) != (2, s, cfg.vocab) or not bool(
+                torch.isfinite(lg).all()):
+            raise AssertionError(f"{arch}: logits {tuple(lg.shape)}")
+        worst = float((lg.cpu() - lc).abs().max())
+        if worst > 1e-4:
+            raise AssertionError(f"{arch} card vs CPU: max abs diff {worst}")
+        emit({"phase": "families_model", "config": cfg.name,
+              "dtype": "float32", "causal": cfg.causal, "positions": s,
+              "batch": 2, "flash_launches": launches,
+              "max_abs_diff_vs_cpu": worst, "tolerance": 1e-4})
+
+
 def main() -> int:
     import torch
 
@@ -1444,20 +1841,35 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    phase_build()
-    rows = phase_kernel()
-    phase_model()
-    cfg, params, backend, launches = phase_serve()
-    phase_window(cfg, params, backend)
-    load_launches = phase_serve_load(cfg, params)
-    bs_rows = phase_block_sparse()
-    bs_launches = {"ztb": phase_ztb(), "zoo": phase_zoo()}
+    seconds = {}
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__[len("phase_"):]] = time.perf_counter() - t0
+        return out
+
+    run(phase_build)
+    rows = run(phase_kernel)
+    run(phase_model)
+    cfg, params, backend, launches = run(phase_serve)
+    run(phase_window, cfg, params, backend)
+    load_launches = run(phase_serve_load, cfg, params)
+    bs_rows = run(phase_block_sparse)
+    bs_launches = {"ztb": run(phase_ztb), "zoo": run(phase_zoo)}
     del params, backend                 # release BitNet-1.58B
     torch.cuda.empty_cache()
-    ssd_rows = phase_ssd()
-    fa_rows = phase_flash()
-    phase_hybrid_model()
-    hy_launches = phase_hybrid_serve()
+    ssd_rows = run(phase_ssd)
+    fa_rows = run(phase_flash)
+    run(phase_hybrid_model)
+    hy_launches = run(phase_hybrid_serve)
+    flash_launches = {"hybrid_serve": hy_launches["flash"]}
+    # each phase frees its model on return
+    for phase in (phase_moe_serve, phase_encoder, phase_vlm):
+        torch.cuda.empty_cache()
+        flash_launches[phase.__name__[len("phase_"):]] = run(phase)
+    run(phase_families_model)
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
 
     head = next(r for r in rows if r["stage"] == "mlp_up" and r["m"] == 1
                 and r["bits"] == 2 and not r.get("grouped"))
@@ -1512,7 +1924,8 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "redesigned": 14,
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
-        "launches": hy_launches["flash"],
+        "launches": sum(flash_launches.values()),
+        "launches_by_phase": flash_launches,
         "max_abs_err": max(r["max_abs_err"] for r in fa_rows),
         "shape": {k: fa_rows[0][k] for k in ("shape", "h", "hkv", "s", "d",
                                              "dtype")},
@@ -1520,6 +1933,10 @@ def main() -> int:
         "bound_ms": fa_rows[0]["bound_ms"],
         "bound_by": fa_rows[0]["bound_by"],
         "library_ms": fa_rows[0]["library_ms"],
+        "family_shapes": [{k: r[k] for k in (
+            "shape", "h", "hkv", "d", "causal", "max_abs_err", "ms",
+            "device_us", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for r in fa_rows[3:]],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,8 +2,9 @@
 
 ``params_from_jax(jax.tree.map(np.asarray, params))`` keeps the tree (the
 port uses the JAX package's layout, per-layer leaves stacked ``[L, ...]``)
-and turns every leaf into a torch tensor on ``device``, so that both
-packages compute with the same weights.
+and turns every leaf into a torch tensor on ``device`` of the same type
+(bfloat16 included), so that both packages compute with the same
+weights.
 """
 from __future__ import annotations
 
@@ -22,6 +23,12 @@ def params_from_jax(np_params: Any, *, device: DeviceLike = None) -> Any:
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node, copy=True)).to(device)
+        arr = np.array(node, copy=True)
+        if arr.dtype.name == "bfloat16":
+            # numpy knows bfloat16 only through ml_dtypes, torch.from_numpy
+            # not at all: carry the bits across
+            return torch.from_numpy(arr.view(np.uint16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(arr).to(device)
 
     return walk(np_params)

@@ -30,6 +30,12 @@ def dense(
     if quantize:
         x = fake_quant_act(x)
         w = fake_quant_weight(w)
+    if x.dtype != w.dtype:
+        # JAX promotes (float32 frames @ a bf16 weight -> float32), where
+        # torch.matmul refuses mixed types; the activations are never cast
+        # down
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     return x @ w
 
 
@@ -68,6 +74,14 @@ def swiglu(x, w1, w2, w3, *, quantize: bool):
         x, w3, quantize=quantize
     )
     return dense(h, w2, quantize=quantize)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits [B, S, V] f32-cast, targets [B, S]."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,

@@ -1,8 +1,8 @@
-"""Model registry: one functional API per architecture family.
+"""Model registry: one functional API for every architecture family.
 
-The port covers the dense decoder transformer, the Mamba-2 SSM family
-(``ssm``) and the Zamba2-style ``hybrid``; ``moe``, ``encoder`` and ``vlm``
-raise until their slices (ROADMAP.md, Queue 1).
+The transformer module serves the ``dense``, ``moe``, ``encoder`` and
+``vlm`` families, ``mamba2`` the Mamba-2 SSM family (``ssm``) and
+``hybrid`` the Zamba2-style hybrid.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models.common import cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,11 +24,14 @@ class ModelAPI:
     device: torch.device
     init: Callable                 # (seed | torch.Generator) -> params
     train_logits: Callable         # (params, batch) -> logits
+    loss: Callable                 # (params, batch) -> scalar (forward only)
     init_cache: Callable           # (batch, max_seq) -> cache
     prefill: Callable              # (params, batch, cache) -> (logits, cache)
-    decode: Optional[Callable]     # (params, token, cache, pos) -> (logits, cache)
+    # (params, token, cache, pos) -> (logits, cache); None for an encoder
+    decode: Optional[Callable]
     # (params, tokens [B,C], cache, pos0) -> (logits, cache); chunked
-    # in-flight prefill — only decoder transformers support it.
+    # in-flight prefill — only decoder transformers without a frontend
+    # support it.
     prefill_chunk: Optional[Callable] = None
 
 
@@ -41,27 +45,35 @@ def _generator(seed: Union[int, torch.Generator],
 
 
 # family -> module with init_params / forward_train / init_cache /
-# forward_prefill / forward_decode (the JAX package's _dense_api,
+# forward_prefill / forward_decode (the JAX package's _transformer_api,
 # _mamba_api and _hybrid_api, which differ only in the module)
-_MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": hybrid}
+_MODULES = {"dense": transformer, "moe": transformer, "encoder": transformer,
+            "vlm": transformer, "ssm": mamba2, "hybrid": hybrid}
 
 
 def build_model(cfg, *, device: DeviceLike = None) -> ModelAPI:
     """The model API of ``cfg`` on ``device`` (default: the CUDA card)."""
     if cfg.family not in _MODULES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            "port serves the dense, ssm and hybrid families (ROADMAP.md, "
-            "Queue 1)"
-        )
+        raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
     m = _MODULES[cfg.family]
-    prefill_chunk = None
-    if cfg.family == "dense" and cfg.frontend not in ("audio_frames",
-                                                      "vision_patches"):
-        prefill_chunk = (lambda params, tokens, cache, pos0:
-                         transformer.forward_prefill_chunk(
-                             cfg, params, tokens, cache, pos0))
+
+    def loss(params, batch):
+        logits = m.forward_train(cfg, params, batch)
+        if cfg.frontend == "vision_patches":
+            # patch positions carry no next-token target
+            logits = logits[:, cfg.num_patches:, :]
+        return cross_entropy(logits, batch["targets"])
+
+    decode = prefill_chunk = None
+    if cfg.is_decoder:
+        decode = (lambda params, token, cache, pos:
+                  m.forward_decode(cfg, params, token, cache, pos))
+        if m is transformer and cfg.frontend not in ("audio_frames",
+                                                     "vision_patches"):
+            prefill_chunk = (lambda params, tokens, cache, pos0:
+                             transformer.forward_prefill_chunk(
+                                 cfg, params, tokens, cache, pos0))
     return ModelAPI(
         cfg=cfg,
         device=device,
@@ -69,11 +81,11 @@ def build_model(cfg, *, device: DeviceLike = None) -> ModelAPI:
                                         device),
         train_logits=lambda params, batch: m.forward_train(cfg, params,
                                                            batch),
+        loss=loss,
         init_cache=lambda batch, max_seq: m.init_cache(cfg, batch, max_seq,
                                                        device),
         prefill=lambda params, batch, cache: m.forward_prefill(
             cfg, params, batch, cache),
-        decode=lambda params, token, cache, pos: m.forward_decode(
-            cfg, params, token, cache, pos),
+        decode=decode,
         prefill_chunk=prefill_chunk,
     )

@@ -1,9 +1,11 @@
-"""Decoder transformer over stacked ``[L, ...]`` layer parameters.
+"""Decoder/encoder transformer over stacked ``[L, ...]`` layer parameters
+(dense, MoE, VLM and encoder families).
 
-The port of ``repro.models.transformer`` for the dense family: the JAX
-package's ``lax.scan`` over layers is a Python loop here, and its sharding
-constraints (no-ops on one device) are gone.  MoE, encoder and VLM
-frontends wait for later slices.
+The port of ``repro.models.transformer``: the JAX package's ``lax.scan``
+over layers is a Python loop here, and its sharding constraints (no-ops on
+one device) are gone.  The two frontends are stubs, as in JAX: an encoder
+takes precomputed frame embeddings, a VLM precomputed patch embeddings
+prepended to its text.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (
     KVCache,
     attention,
@@ -27,31 +30,26 @@ from repro_torch.models.common import (
 )
 
 
-def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} frontend={cfg.frontend!r} "
-            "is not ported yet; the port serves the dense decoder family "
-            "(ROADMAP.md, Queue 1)"
-        )
-
-
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
 
 def _init_block(cfg, gen, device) -> Dict:
     dtype = dtype_of(cfg)
-    return {
+    p = {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "attn": init_attn_params(gen, cfg, dtype, device),
-        "mlp": {
+    }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe_params(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = {
             "w1": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
             "w2": dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device),
             "w3": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
-        },
-    }
+        }
+    return p
 
 
 def _stack(trees):
@@ -64,8 +62,8 @@ def init_params(cfg, gen: torch.Generator, device) -> Dict:
     """Random parameters from ``gen`` (a ``torch.Generator`` on ``device``),
     in the JAX package's tree layout: per-layer leaves stacked ``[L, ...]``.
     The values differ from the JAX package's (another generator); tests
-    share parameters through ``repro_torch.convert``."""
-    _check_family(cfg)
+    share parameters through ``repro_torch.convert``.  An encoder keeps
+    the token embedding it never reads, as the JAX package does."""
     dtype = dtype_of(cfg)
     params = {
         "embed": {"tokens": embed_init(gen, cfg.vocab, cfg.d_model, dtype,
@@ -77,6 +75,11 @@ def init_params(cfg, gen: torch.Generator, device) -> Dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype,
                                        device)
+    if cfg.frontend == "audio_frames":
+        # stub for the conv feature extractor: frames arrive pre-extracted
+        params["frontend"] = {
+            "proj": dense_init(gen, cfg.d_model, cfg.d_model, dtype, device)
+        }
     return params
 
 
@@ -98,8 +101,11 @@ def _block(cfg, p, x, positions, cache=None, cache_pos=None):
     )
     x = x + attn_out
     h = rms_norm(x, p["ln2"])
-    x = x + swiglu(h, p["mlp"]["w1"], p["mlp"]["w2"], p["mlp"]["w3"],
-                   quantize=cfg.quantization == "bitnet")
+    if cfg.family == "moe":
+        x = x + moe_mod.moe_block(p["moe"], cfg, h)
+    else:
+        x = x + swiglu(h, p["mlp"]["w1"], p["mlp"]["w2"], p["mlp"]["w3"],
+                       quantize=cfg.quantization == "bitnet")
     return x, new_cache
 
 
@@ -120,9 +126,17 @@ def _logits(cfg, params, x):
     return dense(x, params["lm_head"])
 
 
-def _embed_tokens(params, tokens):
-    """Returns (x [B, S, d], positions [B, S])."""
-    x = params["embed"]["tokens"][tokens]
+def _embed_inputs(cfg, params, batch):
+    """Returns (x [B, S, d], positions [B, S]); positions run over the
+    whole sequence, a VLM's patches included."""
+    if cfg.frontend == "audio_frames":
+        # stub frontend: precomputed frame embeddings [B, S, d]
+        x = dense(batch["frames"], params["frontend"]["proj"])
+    else:
+        x = params["embed"]["tokens"][batch["tokens"]]
+        if cfg.frontend == "vision_patches":
+            # stub ViT: precomputed patch embeddings prepended to the text
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     return x, positions
@@ -133,9 +147,8 @@ def _embed_tokens(params, tokens):
 # --------------------------------------------------------------------------- #
 
 def forward_train(cfg, params, batch) -> torch.Tensor:
-    """The training-shaped forward (no cache): logits [B, S, V]."""
-    _check_family(cfg)
-    x, positions = _embed_tokens(params, batch["tokens"])
+    """The training-shaped forward (no cache): logits [B, S_total, V]."""
+    x, positions = _embed_inputs(cfg, params, batch)
     x, _ = _run_blocks(cfg, params["blocks"], x, positions)
     return _logits(cfg, params, x)
 
@@ -148,8 +161,7 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> KVCache:
 
 def forward_prefill(cfg, params, batch, cache: KVCache):
     """Prompt pass: fills cache[:, :, :, :S), returns (last_logits, cache)."""
-    _check_family(cfg)
-    x, positions = _embed_tokens(params, batch["tokens"])
+    x, positions = _embed_inputs(cfg, params, batch)
     x, new_cache = _run_blocks(cfg, params["blocks"], x, positions,
                                caches=cache)
     logits = _logits(cfg, params, x[:, -1:, :])
@@ -164,8 +176,8 @@ def forward_prefill_chunk(cfg, params, tokens, cache: KVCache, pos0: int):
     everything at or below each chunk position — earlier chunks already
     live in the cache below ``pos0``.  Returns (last_logits [B, 1, V],
     cache); the logits are only meaningful on a prompt's final chunk.
+    Tokens only, as in the JAX package: no frontend takes this path.
     """
-    _check_family(cfg)
     pos0 = int(pos0)
     x = params["embed"]["tokens"][tokens]
     b, c = tokens.shape
@@ -179,7 +191,6 @@ def forward_prefill_chunk(cfg, params, tokens, cache: KVCache, pos0: int):
 def forward_decode(cfg, params, token, cache: KVCache, pos):
     """One decode step. token [B] int, pos an int or per-slot [B] int
     tensor.  Returns (logits [B, 1, V], new_cache)."""
-    _check_family(cfg)
     x = params["embed"]["tokens"][token][:, None, :]     # [B, 1, d]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos[:, None].to(torch.int32)

@@ -15,9 +15,11 @@ preemption and re-prefill under page pressure) and an admission policy
 place: the engine keeps one batch cache and one staging lane per
 prefilling slot, and never rebuilds them.
 
-Per-family notes: dense uses the KV cache; ssm/hybrid carry O(1)
-recurrent state (their ``pos`` only drives RoPE in the hybrid's shared
-attention) and have no chunked prefill.
+Per-family notes: dense/moe/vlm use the KV cache (the engine's prefill
+passes tokens only, so a VLM with patches is driven through its
+``ModelAPI`` directly); ssm/hybrid carry O(1) recurrent state (their
+``pos`` only drives RoPE in the hybrid's shared attention) and have no
+chunked prefill; an encoder has no decode step and is refused.
 """
 from __future__ import annotations
 

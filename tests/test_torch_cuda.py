@@ -491,6 +491,31 @@ def test_flash_bf16_long_causal_against_float32(card, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d,causal", [
+    (24, 8, 64, True), (16, 16, 80, False), (64, 8, 128, True)],
+    ids=["granite-moe-3b", "hubert-xlarge", "internvl2-76b"])
+def test_flash_bf16_model_shapes_against_float32(card, h, hkv, d, causal):
+    """The attention shapes of the moe, encoder and vlm families' long
+    prefills in bf16 (d = 64 GQA, d = 80 non-causal with its 16-column
+    second TMA box, d = 128 GQA 64 / 8), held to the float32 plain version
+    on the same values at rtol 8e-3 / atol 2e-5."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    s = 2048
+    q, k, v = _bshd_views(1, h, hkv, s, s, d, torch.bfloat16, h + d, card)
+    before = fa.LAUNCHES["bfloat16"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["bfloat16"] == before + 1
+    want = attention_ref(q.float().reshape(h, s, d),
+                         k.float().reshape(hkv, s, d),
+                         v.float().reshape(hkv, s, d), q_heads=h,
+                         kv_heads=hkv, causal=causal).reshape(1, h, s, d)
+    torch.testing.assert_close(got.float(), want, rtol=8e-3, atol=2e-5)
+
+
+@pytest.mark.cuda
 def test_flash_bf16_refuses_what_tma_cannot_load(card):
     """The bf16 kernel loads q, k, v by TMA: a view one element into its
     storage (a base off 16 bytes) or d % 8 != 0 raises, and nothing
@@ -552,6 +577,69 @@ def test_chunked_prefill_on_card_against_whole_and_cpu(card):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
         torch.testing.assert_close(a.cpu(), c, rtol=0, atol=1e-4)
         assert not a[:, :, :, 40:].any()
+
+
+def routing_flips(idx_a, idx_b, probs, k, tol=1e-5):
+    """Tokens whose routed experts differ between two runs, and the
+    smallest margin between the k-th and (k+1)-th router probabilities
+    (``probs`` from the CPU) over all tokens.  A flip is allowed only at
+    such a near-tie: it raises unless that token's margin is within
+    ``tol``."""
+    top = torch.sort(probs, dim=-1, descending=True).values
+    margin = top[..., k - 1] - top[..., k]
+    flipped = (idx_a != idx_b).any(dim=-1)
+    if bool((margin[flipped] > tol).any()):
+        raise AssertionError(f"routing flipped at margins "
+                             f"{margin[flipped].tolist()}")
+    return int(flipped.sum()), float(margin.min())
+
+
+@pytest.mark.cuda
+def test_moe_block_on_card_against_cpu(card):
+    """A reduced MoE block (float32, no quantization, experts padded to 12,
+    drops at capacity factor 1.0) on the card against the CPU: the routed
+    experts agree but at near-ties, and where they all agree the outputs
+    agree within 1e-4 (float32 summed in other orders)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("granite-moe-3b-a800m")).replace(
+        dtype="float32", quantization="none", n_experts_padded=12,
+        capacity_factor=1.0)
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = moe.init_moe_params(gen, cfg, torch.float32, "cpu")
+    p_gpu = {name: t.to(card) for name, t in p_cpu.items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32))
+    probs, _, idx_cpu = moe.route(p_cpu, cfg, x)
+    _, _, idx_gpu = moe.route(p_gpu, cfg, x.to(card))
+    flips, _ = routing_flips(idx_gpu.cpu(), idx_cpu, probs, cfg.top_k)
+    got = moe.moe_block(p_gpu, cfg, x.to(card))
+    want = moe.moe_block(p_cpu, cfg, x)
+    torch.cuda.synchronize()
+    _, _, keep = moe.assign_slots(idx_cpu, cfg.n_experts_total,
+                                  int(cfg.top_k * 64 / cfg.n_experts + 1))
+    assert not bool(keep.all())           # some tokens drop
+    if flips == 0:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dense_promotes_mixed_operands(card):
+    """float32 activations by a bf16 weight give float32, as JAX's
+    promotion does, on the card as on the CPU."""
+    from repro_torch.models.common import dense
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 48)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = dense(x.to(card), w.to(card))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), dense(x, w), rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), x @ w.float(), rtol=0, atol=1e-4)
 
 
 def _numpy_tree(tree):

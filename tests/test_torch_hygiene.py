@@ -34,7 +34,7 @@ def test_port_imports_with_jax_and_reference_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch.serve, repro_torch.legion, repro_torch.models\n"
         "import repro_torch.kernels, repro_torch.convert, repro_torch.quant\n"
-        "import repro_torch.configs, repro_torch.core\n"
+        "import repro_torch.configs, repro_torch.core, repro_torch.data\n"
         "import repro_torch.kernels.build\n"
         "import repro_torch.kernels.block_sparse.ops\n"
         "import repro_torch.legion.lowering, repro_torch.legion.roofline\n"

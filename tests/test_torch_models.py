@@ -22,7 +22,9 @@ import torch
 
 import repro_torch.configs as tconfigs
 import repro.models.common as jax_common
+import repro.models.moe as jax_moe
 import repro_torch.models.common as port_common
+import repro_torch.models.moe as port_moe
 from repro.configs import get_config, reduced
 from repro.models import build_model as jax_build
 from repro.quant import bitnet as jax_bitnet
@@ -55,7 +57,9 @@ def models(request):
 
 @contextlib.contextmanager
 def lockstep(monkeypatch):
-    """Run a JAX call, then the port's call, quantizer by quantizer."""
+    """Run a JAX call, then the port's call, quantizer by quantizer (the
+    MoE modules import ``fake_quant_act`` by name, so they are patched
+    too)."""
     tape = []
 
     def jax_fq(x):
@@ -71,10 +75,12 @@ def lockstep(monkeypatch):
     def run(jax_fn, port_fn):
         with jax.disable_jit(), monkeypatch.context() as mp:
             mp.setattr(jax_common, "fake_quant_act", jax_fq)
+            mp.setattr(jax_moe, "fake_quant_act", jax_fq)
             j = jax_fn()
         assert tape
         with monkeypatch.context() as mp:
             mp.setattr(port_common, "fake_quant_act", port_fq)
+            mp.setattr(port_moe, "fake_quant_act", port_fq)
             t = port_fn()
         assert not tape, f"{len(tape)} quantizer calls left over"
         return j, t
@@ -167,11 +173,23 @@ def test_quantizers_on_identical_inputs():
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "hubert-xlarge",
                                   "internvl2-76b"])
-def test_unported_families_raise(arch):
-    """The moe, encoder and vlm families raise, naming the ROADMAP."""
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+def test_moe_encoder_vlm_families_build(arch):
+    """The moe, encoder and vlm families build, and their parameter trees
+    have the JAX package's keys, shapes and types (the MoE experts and
+    the audio frontend included; their parity is in test_torch_moe.py and
+    test_torch_frontends.py)."""
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch))
+    jcfg = reduced(get_config(arch))
+    want = jax.eval_shape(jax_build(jcfg).init, jax.random.PRNGKey(0))
+    got = build_model(tcfg, device="cpu").init(0)
+    flat_want = {jax.tree_util.keystr(k): v for k, v in
+                 jax.tree_util.tree_flatten_with_path(want)[0]}
+    flat_got = {jax.tree_util.keystr(k): v for k, v in
+                jax.tree_util.tree_flatten_with_path(got)[0]}
+    assert flat_got.keys() == flat_want.keys()
+    for key, leaf in flat_want.items():
+        assert tuple(flat_got[key].shape) == leaf.shape, key
+        assert str(flat_got[key].dtype)[6:] == str(leaf.dtype), key
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
