@@ -86,7 +86,8 @@ Phases, each printing one JSON line:
              S = 1024 (rtol 2e-4 / atol 2e-5) and a GQA case (H = 32,
              Hkv = 8, d = 128, float32, S = 1024).  Times the kernel, the
              plain version and scaled_dot_product_attention (a yardstick
-             only: the port never calls it).
+             only: the port never calls it).  Every row is the serve
+             path's launch, with a null lse pointer (no lse launch counted).
 11. hybrid_model — reduced Zamba2 and Mamba2 (float32, no quantization) on
              the card against the CPU: a 3072-token prefill (the flash
              path) and 3 decode steps, logits within 1e-4.
@@ -129,6 +130,41 @@ Phases, each printing one JSON line:
              encoder at 3072 frames (float32 flash kernel, non-causal) and
              the VLM at 256 patches + 2816 tokens, logits within 1e-4.
 
+10b. flash_bwd — the flash backward kernels (csrc/flash_attention_bwd.cu:
+             D = rowsum(dout * out), dk / dv per 64-key tile, dq per
+             64-query tile; three launches a call) against the plain
+             backward (attention_bwd_ref) and against autograd through the
+             plain forward, on the same values, from the forward kernel's
+             lse (held to the plain lse at rtol 2e-4 / atol 2e-5): the
+             BitNet-1.58B train shape (H = Hkv = 16, d = 128, S = 4096,
+             causal, bf16; and float32 at S = 1024), GQA 32 / 8 at d = 128
+             and the served families' d = 64 (granite-moe-3b, 24 / 8), 80
+             (hubert, non-causal) and 112 (zamba2-7b), S = 4096 bf16.
+             float32 within rtol 2e-3 / atol 2e-4, bf16 within 2e-2 / 2e-2
+             (the JAX package's custom-VJP and bf16 flash tests); two calls
+             equal bit for bit.  Times the kernels, their device time, the
+             plain backward and SDPA's backward (forward + backward less
+             the forward; a yardstick only).
+17. train_model — reduced BitNet (float32, no quantization, 3072-token
+             sequences, so every layer's attention takes the flash path and
+             its backward the kernels) on the card against the CPU from the
+             same state: the loss within rel 1e-5 and every gradient leaf
+             within rtol 1e-4 / atol 1e-5 * max|g|, then 2 train steps, loss
+             within rel 1e-5; then TrainingRunner on the card with a
+             Checkpointer under build/: a crash injected at step 3 resumes
+             from the checkpoint at step 2 and ends at step 6 equal bit for
+             bit to an uninterrupted run, and a save then restore is
+             bit-exact.
+18. train   — full-width BitNet-1.58B (32 layers, d_model 2560, bf16,
+             fake-quant with straight-through estimators, remat per block;
+             random weights from a seeded torch.Generator) trains 4 AdamW
+             steps (lr TRAIN_LR) on one 4096-token sequence: finite losses and
+             gradient norms, the last loss below the first, and exactly 256
+             flash forward launches with the lse (32 layers + 32 recomputed
+             by remat, per step) and 128 backward calls; per-step seconds,
+             tokens/s, peak memory, and one more step traced by
+             torch.profiler (device idle share, top device kernels).
+
 Then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -159,6 +195,12 @@ ZTB_SEQ_LEN = 512                 # the paper evaluates S=2048 (PERF.md §4)
 # (PERF.md §6, PR 16)
 CHUNK_BF16_ATOL = 0.5
 ZOO_ARCH = "granite-moe-1b-a400m"
+# AdamW's learning rate for full-width BitNet-1.58B on one repeated 4096-token
+# sequence: its first steps move every weight by about lr in a direction
+# shared across the sequence; at 1e-4 and above the loss rose and
+# oscillated for 4-6 steps, at 3e-5 it fell every step (tools/train_probe.py
+# lr; PERF.md §6)
+TRAIN_LR = 3e-5
 
 
 def emit(obj) -> None:
@@ -220,7 +262,8 @@ def device_us(fn, iters: int, kernels, per_call: int = 1,
 def phase_build():
     from repro_torch.kernels import build
 
-    sources = ["bitlinear", "block_sparse", "ssd", "flash_attention"]
+    sources = ["bitlinear", "block_sparse", "ssd", "flash_attention",
+               "flash_attention_bwd"]
     t0 = time.perf_counter()
     build.build(sources)
     seconds = time.perf_counter() - t0
@@ -1247,6 +1290,7 @@ def phase_flash():
               ("internvl2-76b prefill", 64, 8, 4096, 128, True,
                torch.bfloat16, bf16))
     rows = []
+    lse_before = fa.LAUNCHES["lse_float32"] + fa.LAUNCHES["lse_bfloat16"]
     for label, h, hkv, s, d, causal, dtype, tol in shapes:
         rng = np.random.default_rng(s + h + hkv + d)
         # [B, S, H, d] tensors handed over as [B, H, S, d] views, as the
@@ -1288,8 +1332,13 @@ def phase_flash():
                 qc, kc, vc, is_causal=causal, **kw), iters),
             "bound_ms": bound, "bound_by": by,
         })
+    # every row ran the serve launch: a null lse pointer, nothing written
+    lse = fa.LAUNCHES["lse_float32"] + fa.LAUNCHES["lse_bfloat16"]
+    if lse != lse_before:
+        raise AssertionError(f"flash serve rows wrote an lse {lse - lse_before}"
+                             " times")
     for r in rows:
-        emit(dict(phase="flash", **r))
+        emit(dict(phase="flash", lse_launches=lse - lse_before, **r))
     return rows
 
 
@@ -1815,7 +1864,8 @@ def phase_families_model():
         lg = gpu.train_logits(p_gpu, {k: v.cuda() for k, v in batch.items()})
         torch.cuda.synchronize()
         launches = dict(fa.LAUNCHES)
-        if launches != {"float32": cfg.layers, "bfloat16": 0}:
+        if launches != {**dict.fromkeys(launches, 0),
+                        "float32": cfg.layers}:
             raise AssertionError(f"{arch}: flash launches {launches}")
         if tuple(lg.shape) != (2, s, cfg.vocab) or not bool(
                 torch.isfinite(lg).all()):
@@ -1827,6 +1877,443 @@ def phase_families_model():
               "dtype": "float32", "causal": cfg.causal, "positions": s,
               "batch": 2, "flash_launches": launches,
               "max_abs_diff_vs_cpu": worst, "tolerance": 1e-4})
+
+
+# (a) D = rowsum(dout * out), (b) dk / dv, (c) dq: bf16 on the tensor cores
+# (the _mma kernels), float32 on the CUDA cores
+FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel",
+                     "flash_bwd_dq_kernel", "flash_bwd_dkdv_mma_kernel",
+                     "flash_bwd_dq_mma_kernel")
+
+
+# (label, H, Hkv, S, d, causal, type, dout): the BitNet-1.58B train shape,
+# also with dout = 2 out, and the served families' head dimensions
+FLASH_BWD_SHAPES = (
+    ("bitnet-1.58b train", 16, 16, 4096, 128, True, "bfloat16", "normal"),
+    ("bitnet-1.58b train, dout 2 out", 16, 16, 4096, 128, True, "bfloat16",
+     "2out"),
+    ("bitnet-1.58b train f32", 16, 16, 1024, 128, True, "float32",
+     "normal"),
+    ("gqa", 32, 8, 4096, 128, True, "bfloat16", "normal"),
+    ("gqa, dout 2 out", 32, 8, 4096, 128, True, "bfloat16", "2out"),
+    ("granite-moe-3b-a800m", 24, 8, 4096, 64, True, "bfloat16", "normal"),
+    ("hubert-xlarge", 16, 16, 4096, 80, False, "bfloat16", "normal"),
+    ("zamba2-7b", 32, 32, 4096, 112, True, "bfloat16", "normal"))
+
+
+def flash_bwd_bound(b, h, hkv, sq, sk, d, causal, elt):
+    """(bound ms, "bytes" | "operations") of the attention backward: q, k,
+    v, out, dout and the lse read once, dq, dk and dv written once, over
+    3.35 TB/s, against its five products (s = q k^T, dv, dp, dq, dk) over
+    the unmasked (query, key) pairs at the type's peak."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    nbytes = (float(elt) * d * (4 * b * h * sq + 4 * b * hkv * sk)
+              + 4.0 * b * h * sq)
+    ops = 10.0 * b * h * pairs * d
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+# Each gradient is also held at the type's rtol with an atol scaled to the
+# reference's own magnitude, BWD_ATOL_RMS x rms(reference): atol 2e-2 alone
+# is about a median entry of dk or dv at S = 4096 and passed a kernel that
+# rounds ds once to bf16.  From tools/flash_bwd_rounding.py on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md §6): dq and dk against the plain
+# backward need <= 4e-4 (ds split) and 0.0098-0.136 (ds rounded once); dv,
+# whose p enters its product rounded once to bf16 as in the forward
+# kernel, <= 0.089; dq and dk against autograd <= 0.128, whose D uses the
+# float32 output where the kernel has the bf16 one it saved; float32
+# <= 1e-5.
+_GRADS = [f"{g}_{r}" for g in ("dq", "dk", "dv") for r in ("plain",
+                                                              "autograd")]
+BWD_ATOL_RMS = {"bfloat16": {"dq_plain": 5e-3, "dk_plain": 5e-3,
+                             "dv_plain": 0.15, "dq_autograd": 0.2,
+                             "dk_autograd": 0.2, "dv_autograd": 0.15},
+                "float32": dict.fromkeys(_GRADS, 1e-4)}
+# the JAX package's custom-VJP test (float32) and bf16 flash test
+FLASH_BWD_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
+                 "float32": dict(rtol=2e-3, atol=2e-4)}
+
+
+def flash_bwd_errors(h, hkv, s, d, causal, dtype, seed, dout="normal"):
+    """The lse forward and the backward kernels once on seeded [B, S, H, d]
+    values handed over as [B, H, S, d] views, as the attention layer does,
+    and their errors: the output and lse against ``attention_fwd_ref``, and
+    each of dq, dk, dv against ``attention_bwd_ref`` ("plain") and autograd
+    through ``attention_ref`` ("autograd") on the same values, as max abs
+    error and as the atol, in units of the reference's rms, that the
+    type's rtol (FLASH_BWD_TOL) leaves to cover (``_atol_rms``; 0 where
+    rtol covers every element).  ``dout`` is standard
+    normal, or "2out": twice the kernel's output, the gradient of
+    sum(out^2), whose rows of ds cancel the most.  Returns (errors, the
+    operands, the lse forward's output and lse)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_ref, attention_ref,
+    )
+
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (1, s, heads, d)).astype(np.float32)).to(
+            device="cuda", dtype=dtype).transpose(1, 2)
+        for heads in (h, hkv, hkv, h))
+    scale = 1.0 / d ** 0.5
+    o, lse = fa._launch(q, k, v, causal, scale, with_lse=True)
+    if dout == "2out":
+        do = 2 * o
+    got = fa._launch_bwd(q, k, v, o, lse, do, causal, scale)
+    again = fa._launch_bwd(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    errs = {"repeat_equal": all(torch.equal(a, b)
+                                for a, b in zip(got, again))}
+    del again
+    flat = lambda t: t.float().reshape(-1, s, d)              # noqa: E731
+    kw = dict(q_heads=h, kv_heads=hkv, causal=causal)
+    o_ref, lse_ref = attention_fwd_ref(flat(q), flat(k), flat(v), **kw)
+    errs["o"] = float((flat(o) - o_ref).abs().max())
+    errs["lse"] = float((lse.reshape(-1, s) - lse_ref).abs().max())
+    checks = {"o": (flat(o), o_ref), "lse": (lse.reshape(-1, s), lse_ref)}
+    del o_ref
+    plain = attention_bwd_ref(flat(q), flat(k), flat(v), flat(o), lse_ref,
+                              flat(do), **kw)
+    leaves = [flat(t).requires_grad_() for t in (q, k, v)]
+    attention_ref(*leaves, **kw).backward(flat(do))
+    rtol = FLASH_BWD_TOL[str(dtype)[6:]]["rtol"]
+    for name, g, want, auto in zip(("dq", "dk", "dv"), got, plain, leaves):
+        g = g.float().reshape(want.shape)
+        for ref_name, ref in (("plain", want), ("autograd", auto.grad)):
+            key = f"{name}_{ref_name}"
+            err = (g - ref).abs()
+            errs[key] = float(err.max())
+            errs[key + "_atol_rms"] = float(
+                (err - rtol * ref.abs()).clamp_min(0).max()
+                / ref.square().mean().sqrt())
+            checks[key] = (g, ref)
+    errs["_checks"] = checks
+    return errs, (q, k, v, do), (o, lse)
+
+
+def flash_bwd_failures(errs, dtype):
+    """What a row of flash_bwd_errors fails: two calls not bit-equal, the
+    output or lse off, a gradient outside the type's FLASH_BWD_TOL or
+    outside its rtol with atol BWD_ATOL_RMS[key] x rms(reference)."""
+    import torch
+
+    name = str(dtype)[6:]
+    out_tol = (dict(rtol=8e-3, atol=2e-5) if dtype == torch.bfloat16
+               else dict(rtol=2e-4, atol=2e-5))       # as phase_flash
+    fails = [] if errs["repeat_equal"] else ["two calls differ"]
+    for key, (got, want) in errs["_checks"].items():
+        t = (out_tol if key == "o" else dict(rtol=2e-4, atol=2e-5)
+             if key == "lse" else FLASH_BWD_TOL[name])
+        if not torch.allclose(got, want, **t):
+            fails.append(f"{key} max abs err {errs[key]} outside {t}")
+        bound = BWD_ATOL_RMS[name].get(key)
+        if bound is not None and errs[key + "_atol_rms"] > bound:
+            fails.append(f"{key} needs atol {errs[key + '_atol_rms']} "
+                         f"rms(ref) > {bound}")
+    return fails
+
+
+def phase_flash_bwd():
+    """The flash backward kernels against the plain backward
+    (attention_bwd_ref) and against autograd through the plain forward
+    (attention_ref), on the same values, at the BitNet-1.58B train shape
+    (also with dout = 2 out) and at the served families' head
+    dimensions."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for label, h, hkv, s, d, causal, dtype, dout in FLASH_BWD_SHAPES:
+        tol = FLASH_BWD_TOL[dtype]
+        dtype = getattr(torch, dtype)
+        errs, (q, k, v, do), (o, lse) = flash_bwd_errors(
+            h, hkv, s, d, causal, dtype, 7 * s + h + hkv + d, dout)
+        fails = flash_bwd_failures(errs, dtype)
+        if fails:
+            raise AssertionError(f"flash_bwd {label}: {'; '.join(fails)}")
+        del errs["_checks"]
+        call = lambda i: fa._launch_bwd(                      # noqa: E731
+            q, k, v, o, lse, do, causal, 1.0 / d ** 0.5)
+        flat = lambda t: t.float().reshape(-1, s, d)          # noqa: E731
+        qc, kc, vc = (t.contiguous().requires_grad_() for t in (q, k, v))
+        doc = do.contiguous()
+        gqa = {"enable_gqa": True} if hkv != h else {}
+
+        def sdpa(i, backward):
+            out = F.scaled_dot_product_attention(qc, kc, vc,
+                                                 is_causal=causal, **gqa)
+            if backward:
+                qc.grad = kc.grad = vc.grad = None
+                out.backward(doc)
+        iters = 3 if s > 1024 else 10
+        bound, by = flash_bwd_bound(1, h, hkv, s, s, d, causal,
+                                    2 if dtype == torch.bfloat16 else 4)
+        grads = {key: v for key, v in errs.items() if key[:2] in
+                 ("dq", "dk", "dv")}
+        rows.append({
+            "shape": label, "b": 1, "h": h, "hkv": hkv, "s": s, "d": d,
+            "dtype": str(dtype)[6:], "causal": causal, "dout": dout,
+            "max_abs_err": max(v for key, v in grads.items()
+                               if not key.endswith("_atol_rms")),
+            "errors": grads, "o_max_abs_err": errs["o"],
+            "lse_max_abs_err": errs["lse"], "tolerance": tol,
+            "atol_rms_bound": BWD_ATOL_RMS[str(dtype)[6:]],
+            "ms": cuda_ms(call, iters),
+            "device_us": device_us(call, 2, FLASH_BWD_KERNELS, per_call=3),
+            "plain_ms": cuda_ms(lambda i: attention_bwd_ref(
+                flat(q), flat(k), flat(v), flat(o), lse.reshape(-1, s),
+                flat(do), q_heads=h, kv_heads=hkv, causal=causal), 2),
+            # SDPA's backward: forward + backward less the forward
+            "library_ms": (cuda_ms(lambda i: sdpa(i, True), iters)
+                           - cuda_ms(lambda i: sdpa(i, False), iters)),
+            "bound_ms": bound, "bound_by": by,
+        })
+        del q, k, v, do, o, lse, qc, kc, vc, doc, errs
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit(dict(phase="flash_bwd", **r))
+    return rows
+
+
+def _tree_bits_equal(a, b) -> bool:
+    """Two trees of tensors equal bit for bit, leaf by leaf."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def phase_train_model():
+    """Reduced BitNet (float32, no quantization, 3072-token sequences: the
+    flash path, its backward on the kernels) trains on the card against
+    the CPU from the same state, then restarts after an injected crash
+    through TrainingRunner and a Checkpointer under build/."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.train import (
+        AdamW, Checkpointer, TrainingRunner, build_train_step,
+        init_train_state,
+    )
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_loop import TrainState, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = reduced(get_config("bitnet-1.58b")).replace(
+        dtype="float32", quantization="none")
+    s = 3072
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
+    opt = AdamW(lr=1e-3)
+
+    def on_card(seed):
+        """The CPU's initial state of ``seed``, copied to the card."""
+        params = params_from_jax(_numpy_tree(cpu.init(seed)))
+        return TrainState(params, opt.init(params))
+
+    state_cpu = init_train_state(cpu, opt, 0)
+    state_gpu = on_card(0)
+
+    def batch(step, device):
+        return {k: torch.from_numpy(v).to(device) for k, v in
+                synthetic_batch(cfg, batch=1, seq=s, step=step).items()}
+
+    fa.reset_launches()
+    l_cpu, g_cpu = value_and_grad(cpu.loss, state_cpu.params,
+                                  batch(0, "cpu"))
+    l_gpu, g_gpu = value_and_grad(gpu.loss, state_gpu.params,
+                                  batch(0, "cuda"))
+    torch.cuda.synchronize()
+    grad_launches = dict(fa.LAUNCHES)
+    if (grad_launches["lse_float32"], grad_launches["backward_float32"]) != (
+            cfg.layers, cfg.layers):
+        raise AssertionError(f"train_model grad launches {grad_launches}")
+    grad_err = 0.0
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)):
+        a = a.cpu()
+        grad_err = max(grad_err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=1e-4,
+                              atol=1e-5 * float(b.abs().max())):
+            raise AssertionError(f"train_model grad: max abs diff "
+                                 f"{float((a - b).abs().max())}")
+    if abs(float(l_gpu) - float(l_cpu)) > 1e-5 * abs(float(l_cpu)):
+        raise AssertionError(f"train_model loss {float(l_gpu)} on the card, "
+                             f"{float(l_cpu)} on the CPU")
+    losses = []
+    step_cpu = build_train_step(cpu, opt)
+    step_gpu = build_train_step(gpu, opt)
+    for i in range(2):
+        state_cpu, m_cpu = step_cpu(state_cpu, batch(i, "cpu"))
+        state_gpu, m_gpu = step_gpu(state_gpu, batch(i, "cuda"))
+        lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
+        losses.append((lg, lc))
+        if abs(lg - lc) > 1e-5 * abs(lc):
+            raise AssertionError(f"train_model step {i}: loss {lg} on the "
+                                 f"card, {lc} on the CPU")
+
+    # crash at step 3, resume from the checkpoint at step 2, end at step 6
+    ckpt_dir = os.path.join(ROOT, "build", "train_model_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    start = on_card(1)
+    batch_fn = lambda i: batch(i, "cuda")                   # noqa: E731
+    fa.reset_launches()
+    crashed = TrainingRunner(step_gpu, batch_fn, start,
+                             Checkpointer(ckpt_dir), ckpt_every=2)
+    try:
+        crashed.run(6, fail_at=3, install_signal_handler=False)
+        raise AssertionError("the injected failure did not happen")
+    except RuntimeError as err:
+        if "injected failure at step 3" not in str(err):
+            raise
+    resumed = TrainingRunner(step_gpu, batch_fn, start,
+                             Checkpointer(ckpt_dir), ckpt_every=2)
+    resumed.run(6, install_signal_handler=False)
+    straight = start
+    for i in range(6):
+        straight, _ = step_gpu(straight, batch_fn(i))
+    torch.cuda.synchronize()
+    runner_launches = dict(fa.LAUNCHES)
+    if resumed.start_step != 2 or not _tree_bits_equal(resumed.state,
+                                                       straight):
+        raise AssertionError(f"resumed at {resumed.start_step}: not equal "
+                             "bit for bit to an uninterrupted run")
+    ck = Checkpointer(os.path.join(ckpt_dir, "roundtrip"))
+    ck.save(6, straight, blocking=True)
+    _, back = ck.restore(example=straight)
+    if not _tree_bits_equal(back, straight):
+        raise AssertionError("save then restore is not bit-exact")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = {"grad": grad_launches["lse_float32"]
+                + grad_launches["backward_float32"],
+                "lse_float32": grad_launches["lse_float32"]
+                + runner_launches["lse_float32"],
+                "backward_float32": grad_launches["backward_float32"]
+                + runner_launches["backward_float32"]}
+    emit({"phase": "train_model", "config": cfg.name, "dtype": "float32",
+          "seq": s, "batch": 1, "losses_card_cpu": losses,
+          "grad_max_abs_diff": grad_err,
+          "tolerance": {"loss_rel": 1e-5, "grad_rtol": 1e-4,
+                        "grad_atol": "1e-5 * max|g|"},
+          "resume": {"fail_at": 3, "ckpt_every": 2, "start_step": 2,
+                     "steps": 6, "bit_equal": True},
+          "roundtrip_bit_equal": True, "flash_launches": launches})
+    return launches
+
+
+def phase_train():
+    """Full-width BitNet-1.58B (bf16, fake-quant with STE, remat per block)
+    trains 4 steps of one 4096-token sequence through build_train_step;
+    launch counts taken around the 4 steps, then one more step traced."""
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamW, build_train_step, init_train_state
+
+    cfg = get_config("bitnet-1.58b")
+    if (cfg.dtype, cfg.remat, cfg.quantization) != ("bfloat16", "block",
+                                                    "bitnet"):
+        raise AssertionError(f"bitnet-1.58b config {cfg}")
+    seq, steps = 4096, 4
+    api = build_model(cfg)
+    opt = AdamW(lr=TRAIN_LR)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=api.device)
+    gen.manual_seed(0)
+    state = init_train_state(api, opt, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        cfg, batch=1, seq=seq, step=0).items()}
+    step = build_train_step(api, opt)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, norms, seconds = [], [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        seconds.append(time.perf_counter() - t)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # per step: 32 forward calls with the lse, 32 more as remat recomputes
+    # each block in the backward, and 32 backward calls (3 kernels each)
+    want = {"lse_bfloat16": 2 * cfg.layers * steps,
+            "backward_bfloat16": cfg.layers * steps}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"train flash launches {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        traced_s = time.perf_counter() - t
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            name = kernel_name(evt.name) or evt.name
+            by_name[name] = by_name.get(name, 0.0) + \
+                evt.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # the profiler slows the host, so the traced step's wall is longer than
+    # an untraced one's; the device time against the untraced steps' mean
+    # is the other reading of the idle share
+    untraced_ms = sum(seconds[1:]) / (steps - 1) * 1e3
+    emit({"phase": "train", "config": cfg.name, "params": n_params,
+          "dtype": cfg.dtype, "remat": cfg.remat, "batch": 1, "seq": seq,
+          "steps": steps, "lr": TRAIN_LR, "init_seconds": init_s,
+          "losses": losses,
+          "grad_norms": norms, "step_seconds": seconds,
+          "tokens_per_second": seq / (sum(seconds[1:]) / (steps - 1)),
+          "peak_memory_bytes": peak, "flash_launches": got,
+          "flash_kernels_per_call": {"forward": 1, "backward": 3},
+          "traced_step": {"wall_seconds": traced_s,
+                          "device_ms": device_ms if by_name else None,
+                          "device_idle_share": (1 - device_ms
+                                                / (traced_s * 1e3))
+                          if by_name else None,
+                          "idle_share_vs_untraced_step": (
+                              1 - device_ms / untraced_ms)
+                          if by_name else None,
+                          "top_device_ms": top}})
+    return got
 
 
 def main() -> int:
@@ -1861,6 +2348,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssd_rows = run(phase_ssd)
     fa_rows = run(phase_flash)
+    bwd_rows = run(phase_flash_bwd)
     run(phase_hybrid_model)
     hy_launches = run(phase_hybrid_serve)
     flash_launches = {"hybrid_serve": hy_launches["flash"]}
@@ -1869,6 +2357,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         flash_launches[phase.__name__[len("phase_"):]] = run(phase)
     run(phase_families_model)
+    torch.cuda.empty_cache()
+    train_model_launches = run(phase_train_model)
+    torch.cuda.empty_cache()
+    train_launches = run(phase_train)
+    flash_launches["train_model"] = train_model_launches["lse_float32"]
+    flash_launches["train"] = train_launches["lse_bfloat16"]
+    bwd_launches = {"train_model": train_model_launches["backward_float32"],
+                    "train": train_launches["backward_bfloat16"]}
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
 
     head = next(r for r in rows if r["stage"] == "mlp_up" and r["m"] == 1
@@ -1937,6 +2433,25 @@ def main() -> int:
             "shape", "h", "hkv", "d", "causal", "max_abs_err", "ms",
             "device_us", "plain_ms", "library_ms", "bound_ms", "bound_by")}
             for r in fa_rows[3:]],
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda", "ported": 18,
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:114",
+        "kernels_per_call": 3,
+        "launches": sum(bwd_launches.values()),
+        "launches_by_phase": bwd_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "shape": {k: bwd_rows[0][k] for k in ("shape", "h", "hkv", "s", "d",
+                                              "dtype")},
+        "ms": bwd_rows[0]["ms"], "device_us": bwd_rows[0]["device_us"],
+        "plain_ms": bwd_rows[0]["plain_ms"],
+        "bound_ms": bwd_rows[0]["bound_ms"],
+        "bound_by": bwd_rows[0]["bound_by"],
+        "library_ms": bwd_rows[0]["library_ms"],
+        "other_shapes": [{k: r[k] for k in (
+            "shape", "h", "hkv", "s", "d", "dtype", "causal", "max_abs_err",
+            "ms", "device_us", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for r in bwd_rows[1:]],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,10 +1,13 @@
-"""Parameters of the JAX package, as numpy arrays, into the port's tensors.
+"""Parameters and train states of the JAX package, as numpy arrays, into
+the port's tensors.
 
 ``params_from_jax(jax.tree.map(np.asarray, params))`` keeps the tree (the
 port uses the JAX package's layout, per-layer leaves stacked ``[L, ...]``)
 and turns every leaf into a torch tensor on ``device`` of the same type
 (bfloat16 included), so that both packages compute with the same
-weights.
+weights.  ``train_state_from_jax(jax.tree.map(np.asarray, state))`` does
+the same for a whole ``TrainState`` (params and the AdamW step and
+moments), so that both packages train from the same state.
 """
 from __future__ import annotations
 
@@ -32,3 +35,24 @@ def params_from_jax(np_params: Any, *, device: DeviceLike = None) -> Any:
         return torch.from_numpy(arr).to(device)
 
     return walk(np_params)
+
+
+def train_state_from_jax(np_state: Any, *, device: DeviceLike = None):
+    """The JAX package's ``TrainState`` with numpy leaves (``params``,
+    ``opt.step``, ``opt.mu``, ``opt.nu``) -> the port's ``TrainState``.
+    The compressed variant's error-feedback state belongs to the
+    distributed slice and is refused."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_loop import TrainState
+
+    if np_state.ef is not None:
+        raise ValueError("the error-feedback state of the compressed train "
+                         "step is not ported (ROADMAP.md, Queue 1)")
+    device = resolve_device(device)
+    opt = np_state.opt
+    step = torch.from_numpy(np.array(opt.step, dtype=np.int32)).to(device)
+    return TrainState(
+        params=params_from_jax(np_state.params, device=device),
+        opt=AdamWState(step=step,
+                       mu=params_from_jax(opt.mu, device=device),
+                       nu=params_from_jax(opt.nu, device=device)))

@@ -13,6 +13,11 @@
 // acc / max(l, 1e-30) in q's type.  q, k, v and o are read through
 // (batch, head, position) strides with unit stride along the head dimension,
 // so [B, S, H, d] tensors and their [B, H, S, d] transposes go in uncopied.
+// For training, both kernels also write each row's log-sum-exp m + log(l)
+// (natural log, float32) when given an `lse` pointer: the residual that the
+// backward (flash_attention_bwd.cu) recomputes the probabilities from, as
+// the JAX package's custom VJP saves it (src/repro/models/attention.py,
+// _flash_fwd).  Serving passes null, and its epilogue is unchanged.
 //
 // bfloat16 (the Zamba2-7B serve path): flash_kernel_bf16_wgmma, shaped after
 // FlashAttention-3 for Hopper.  A block of 384 threads owns 128 query rows
@@ -81,8 +86,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_kernel_f32(const float* __restrict__ q, Strides sq,
                  const float* __restrict__ k, Strides sk,
                  const float* __restrict__ v, Strides sv,
-                 float* __restrict__ o, Strides so, int H, int Hkv, int Sq,
-                 int Sk, int D, float scale, int causal) {
+                 float* __restrict__ o, Strides so, float* __restrict__ lse,
+                 int H, int Hkv, int Sq, int Sk, int D, float scale,
+                 int causal) {
   extern __shared__ float smem[];
   const int pd = D + 1;
   float* qs = smem;                  // [BQ][pd]
@@ -211,6 +217,8 @@ flash_kernel_f32(const float* __restrict__ q, Strides sq,
       const int col = tx + 16 * c;
       if (col < D) o[row * so.s + col] = acc[r][c] * inv;
     }
+    if (lse != nullptr && tx == 0)
+      lse[(bi * H + hi) * Sq + row] = m[r] + logf(fmaxf(l[r], 1e-30f));
   }
 }
 
@@ -432,9 +440,10 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        __nv_bfloat16* __restrict__ o, Strides so, int H,
-                        int Hkv, int Sq, int Sk, int D, float scale_log2,
-                        float masked_raw, int causal) {
+                        __nv_bfloat16* __restrict__ o, Strides so,
+                        float* __restrict__ lse, int H, int Hkv, int Sq,
+                        int Sk, int D, float scale_log2, float masked_raw,
+                        int causal) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * W_STAGES];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -613,6 +622,10 @@ flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + 8 * h;
       if (row >= Sq) continue;
       const float inv = 1.0f / fmaxf(l[h], 1e-30f);
+      // m is in the log2 domain of the scaled scores
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(static_cast<long long>(bi) * H + hi) * Sq + row] =
+            (m[h] + log2f(fmaxf(l[h], 1e-30f))) * 0.69314718055994531f;
       __nv_bfloat16* dst = o + static_cast<long long>(row) * so.s;
 #pragma unroll
       for (int j = 0; j < N1 / 8; ++j) {
@@ -688,9 +701,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, Strides st, int D, int S,
 }
 
 int launch_bf16(const void* q, Strides sq, const void* k, Strides sk,
-                const void* v, Strides sv, void* o, Strides so, int B, int H,
-                int Hkv, int Sq, int Sk, int D, float scale, int causal,
-                cudaStream_t stream) {
+                const void* v, Strides sv, void* o, Strides so, float* lse,
+                int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+                int causal, cudaStream_t stream) {
   // what TMA takes: 16-byte aligned bases and byte strides, d % 8 == 0
   if (D % 8 != 0 || B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
@@ -699,8 +712,8 @@ int launch_bf16(const void* q, Strides sq, const void* k, Strides sk,
       !encode_map(&tv, v, sv, D, Sk, Hkv, B))
     return static_cast<int>(cudaErrorInvalidValue);
   static void (*const kernels[8])(CUtensorMap, CUtensorMap, CUtensorMap,
-                                  __nv_bfloat16*, Strides, int, int, int,
-                                  int, int, float, float, int) = {
+                                  __nv_bfloat16*, Strides, float*, int, int,
+                                  int, int, int, float, float, int) = {
       flash_kernel_bf16_wgmma<1>, flash_kernel_bf16_wgmma<2>,
       flash_kernel_bf16_wgmma<3>, flash_kernel_bf16_wgmma<4>,
       flash_kernel_bf16_wgmma<5>, flash_kernel_bf16_wgmma<6>,
@@ -712,15 +725,15 @@ int launch_bf16(const void* q, Strides sq, const void* k, Strides sk,
   const float scale_log2 = scale * 1.4426950408889634f;
   const dim3 grid((Sq + W_BM - 1) / W_BM, B * H);
   kernel<<<grid, W_THREADS, W_SMEM_BYTES, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, H, Hkv, Sq, Sk, D,
-      scale_log2, NEG_BIG / scale_log2, causal);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, lse, H, Hkv, Sq, Sk,
+      D, scale_log2, NEG_BIG / scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const void* q, Strides sq, const void* k, Strides sk,
-               const void* v, Strides sv, void* o, Strides so, int B, int H,
-               int Hkv, int Sq, int Sk, int D, float scale, int causal,
-               cudaStream_t stream) {
+               const void* v, Strides sv, void* o, Strides so, float* lse,
+               int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+               int causal, cudaStream_t stream) {
   const int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -728,8 +741,8 @@ int launch_f32(const void* q, Strides sq, const void* k, Strides sk,
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_kernel_f32<<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), sq, static_cast<const float*>(k), sk,
-      static_cast<const float*>(v), sv, static_cast<float*>(o), so, H, Hkv,
-      Sq, Sk, D, scale, causal);
+      static_cast<const float*>(v), sv, static_cast<float*>(o), so, lse, H,
+      Hkv, Sq, Sk, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -741,22 +754,26 @@ int launch_f32(const void* q, Strides sq, const void* k, Strides sk,
 // (flash_kernel_bf16_wgmma: d % 8 == 0, 16-byte aligned q, k, v and byte
 // strides).  q / o are indexed [batch, head, position, d] and k / v
 // [batch, kv head, position, d] through the three strides given for each (in
-// elements); d has unit stride.
+// elements); d has unit stride.  `lse`, when not null, receives the float32
+// log-sum-exp of each row's scaled scores, [B, H, Sq] contiguous, as the
+// training forward saves it for the backward (flash_attention_bwd.cu); the
+// serve path passes null and writes nothing more.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, long long sq_b, long long sq_h, long long sq_s,
     const void* k, long long sk_b, long long sk_h, long long sk_s,
     const void* v, long long sv_b, long long sv_h, long long sv_s, void* o,
     long long so_b, long long so_h, long long so_s, int B, int H, int Hkv,
-    int Sq, int Sk, int D, float scale, int causal, void* stream) {
+    int Sq, int Sk, int D, float scale, int causal, void* lse, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
       D < 1 || D > DMAX || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides q_s{sq_b, sq_h, sq_s}, k_s{sk_b, sk_h, sk_s},
       v_s{sv_b, sv_h, sv_s}, o_s{so_b, so_h, so_s};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* row_lse = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_f32(q, q_s, k, k_s, v, v_s, o, o_s, B, H, Hkv, Sq, Sk, D,
-                      scale, causal, s);
-  return launch_bf16(q, q_s, k, k_s, v, v_s, o, o_s, B, H, Hkv, Sq, Sk, D,
-                     scale, causal, s);
+    return launch_f32(q, q_s, k, k_s, v, v_s, o, o_s, row_lse, B, H, Hkv, Sq,
+                      Sk, D, scale, causal, s);
+  return launch_bf16(q, q_s, k, k_s, v, v_s, o, o_s, row_lse, B, H, Hkv, Sq,
+                     Sk, D, scale, causal, s);
 }

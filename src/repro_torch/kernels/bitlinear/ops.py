@@ -5,6 +5,8 @@ tensors and runs the plain version (``ref.py``) for CPU tensors.
 ``"cuda"`` and ``"reference"`` force one side and raise for a tensor on the
 other device: nothing falls back.  ``LAUNCHES`` counts kernel launches by
 weight precision, so a run can show that its path went through the kernel.
+The kernel has no backward (QAT multiplies through fake-quant, never
+through it): a CUDA call whose float operands need a gradient raises.
 
 One kernel serves single products and groups of them:
 :func:`grouped_tile_gemm` adds a work list of column slices into one
@@ -69,6 +71,23 @@ def resolve_backend(backend: str, t: torch.Tensor) -> str:
             "backend='reference' runs the plain version on CPU tensors only; "
             "CUDA tensors go through the kernel")
     return backend
+
+
+def refuse_grad(kernel: str, item: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate through ``kernel``'s
+    CUDA launch: its output is a fresh tensor that a ctypes call fills, with
+    no ``grad_fn``, so the gradient would stop there without a word.
+    ``item`` names the ROADMAP.md entry that gives the kernel a backward.
+    The plain version is not taken instead: that would hide the kernel."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} CUDA kernel has no backward yet ({item}); run "
+            "it under torch.no_grad() or on inputs that need no gradient")
+
+
+NO_BACKWARD = "ROADMAP.md Queue 1, item 4: the integer kernels' backward"
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, bits: int,
@@ -167,6 +186,7 @@ def grouped_tile_gemm(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
                              "all on the card")
         grouped_tile_gemm_ref(x, w, out, slices, bits=bits)
         return
+    refuse_grad("bitlinear", NO_BACKWARD, x, w, out)
     _check_kernel_operands((x, w, out), bits)
     if not slices:
         return
@@ -200,6 +220,7 @@ def bitlinear_matmul(
     """
     _check(x_int8, w_packed, bits, out)
     if resolve_backend(backend, x_int8) == "cuda":
+        refuse_grad("bitlinear", NO_BACKWARD, x_int8, w_packed, out)
         accumulate = out is not None
         if out is None:
             out = torch.empty((x_int8.shape[0], w_packed.shape[1]),

@@ -6,7 +6,8 @@ tensors and runs the plain version (``ref.py``) for CPU tensors;
 other device: nothing falls back.  The CSR-of-blocks schedule is built on
 the host (:func:`repro_torch.core.sparsity.csr_block_schedule`) and
 uploaded.  ``LAUNCHES`` counts kernel launches by operand type, so a run can
-show that its path went through the kernel.
+show that its path went through the kernel.  The kernel has no backward: a
+CUDA call whose float operands need a gradient raises.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core.sparsity import csr_block_schedule
 from repro_torch.kernels.bitlinear.ops import (
-    raw_stream, resolve_backend, sm_count,
+    NO_BACKWARD, raw_stream, refuse_grad, resolve_backend, sm_count,
 )
 from repro_torch.kernels.block_sparse.ref import block_sparse_matmul_ref
 
@@ -84,6 +85,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, indices: torch.Tensor,
             counts: torch.Tensor, bk: int, bn: int,
             out: Optional[torch.Tensor]) -> torch.Tensor:
     """C (+)= x @ w over the scheduled blocks, on the card; returns C."""
+    refuse_grad("block_sparse", NO_BACKWARD, x, w, out)
     if x.dtype != w.dtype or x.dtype not in DTYPES:
         raise TypeError("kernel takes int8 x int8 or float32 x float32 "
                         f"operands; got {x.dtype}, {w.dtype}")

@@ -1,13 +1,22 @@
-"""Public wrapper of the flash-attention CUDA kernel: ``[B, H, S, d]``
-layout and backend selection.
+"""Public wrapper of the flash-attention CUDA kernels: ``[B, H, S, d]``
+layout, backend selection and the gradient.
 
 ``backend="auto"`` launches the kernel (``csrc/flash_attention.cu``) for
 CUDA tensors and runs the plain version (``ref.py``) for CPU tensors;
 ``"cuda"`` and ``"reference"`` force one side and raise for a tensor on the
-other device: nothing falls back.  ``LAUNCHES`` counts kernel launches by
-type, so a run can show that its path went through the kernel.  bfloat16
-runs the tensor-core kernel, which loads q, k and v by TMA; a bf16 call
-whose layout TMA cannot read (``tma_layout_error``) raises.
+other device: nothing falls back.  bfloat16 runs the tensor-core kernel,
+which loads q, k and v by TMA; a bf16 call whose layout TMA cannot read
+(``tma_layout_error``) raises.
+
+Under autograd (grad enabled and q, k or v requiring a gradient) the call
+goes through :class:`FlashAttention`, the port of the JAX package's
+``_flash`` custom VJP: its forward also writes each row's log-sum-exp and
+saves ``q, k, v, out, lse``; its backward is the backward kernel
+(``csrc/flash_attention_bwd.cu``) on the card and ``attention_bwd_ref`` on
+the CPU.  Without autograd the call is the serve path's launch, which
+writes no lse.  ``LAUNCHES`` counts launches by type and kind (a backward
+call, three CUDA kernels, counts once), so a run can show that its path
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -17,10 +26,16 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.bitlinear.ops import resolve_backend
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_fwd_ref, attention_ref,
+)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-LAUNCHES: Dict[str, int] = {"float32": 0, "bfloat16": 0}
+# forward launches (serve: no lse), forward launches that wrote the lse
+# (training), backward calls; each by operand type
+LAUNCHES: Dict[str, int] = {
+    f"{kind}{name}": 0 for kind in ("", "lse_", "backward_")
+    for name in ("float32", "bfloat16")}
 MAX_HEAD_DIM = 128
 
 
@@ -48,22 +63,44 @@ def tma_layout_error(shape, strides, data_ptr: int,
     return None
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
-    from repro_torch.kernels.build import library
+def _type_name(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[1]
 
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("the flash kernel takes float32 or bfloat16 q, k, v "
-                        f"of one type; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must lie on one CUDA device")
-    for label, t in (("q", q), ("k", k), ("v", v)):
+
+def _check_operands(tensors, d: int) -> None:
+    """One kernel type over every operand, one device, unit stride along
+    d, d <= MAX_HEAD_DIM."""
+    dtype, device = tensors[0][1].dtype, tensors[0][1].device
+    if dtype not in DTYPES or any(t.dtype != dtype for _, t in tensors):
+        raise TypeError("the flash kernels take float32 or bfloat16 "
+                        "operands of one type; got "
+                        + ", ".join(f"{n} {t.dtype}" for n, t in tensors))
+    if any(t.device != device for _, t in tensors):
+        raise ValueError("the flash kernels' operands must lie on one CUDA "
+                         "device")
+    for label, t in tensors:
         if t.shape[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"{label} needs unit stride along its last axis")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels take d <= {MAX_HEAD_DIM}; "
+                         f"got {d}")
+
+
+def _strided(tensors):
+    args = []
+    for t in tensors:
+        args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+    return args
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float, with_lse: bool = False):
+    """The forward kernel; returns o, or (o, lse float32 [B, H, Sq]) with
+    ``with_lse``."""
+    from repro_torch.kernels.build import library
+
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernel takes d <= {MAX_HEAD_DIM}; "
-                         f"got {d}")
+    _check_operands((("q", q), ("k", k), ("v", v)), d)
     if q.dtype == torch.bfloat16:
         for label, t in (("q", q), ("k", k), ("v", v)):
             why = tma_layout_error(t.shape, t.stride(), t.data_ptr())
@@ -73,25 +110,106 @@ def _launch(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
     # o in [B, S, H, d] memory order: the attention layer reads it that way
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel() == 0:
-        return o
+        return (o, lse) if with_lse else o
     fn = library("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = ([ci] + [vp, ll, ll, ll] * 4
-                       + [ci] * 6 + [ctypes.c_float, ci, vp])
+                       + [ci] * 6 + [ctypes.c_float, ci, vp, vp])
         fn.restype = ci
-    args = []
-    for t in (q, k, v, o):
-        args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
-    rc = fn(DTYPES[q.dtype], *args, b, h, hkv, sq, sk, d, sm_scale,
-            int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(DTYPES[q.dtype], *_strided((q, k, v, o)), b, h, hkv, sq, sk, d,
+            sm_scale, int(causal), lse.data_ptr() if with_lse else None,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc} (B={b} H={h} Hkv={hkv} Sq={sq} "
                            f"Sk={sk} d={d} {q.dtype})")
-    LAUNCHES[str(q.dtype).split(".")[1]] += 1
-    return o
+    LAUNCHES[("lse_" if with_lse else "") + _type_name(q)] += 1
+    return (o, lse) if with_lse else o
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """The backward kernels; returns (dq, dk, dv) in the operands' type and
+    layout."""
+    from repro_torch.kernels.build import library
+
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if do.shape[-1] > 1 and do.stride(-1) != 1:
+        do = do.contiguous()
+    _check_operands((("q", q), ("k", k), ("v", v), ("out", o),
+                     ("dout", do)), d)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous float32 [B, H, Sq] tensor")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    rowdot = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = library("flash_attention_bwd").flash_attention_bwd_launch
+    if fn.argtypes is None:
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = ([ci] + [vp, ll, ll, ll] * 8 + [vp, vp] + [ci] * 6
+                       + [ctypes.c_float, ci, vp])
+        fn.restype = ci
+    rc = fn(DTYPES[q.dtype], *_strided((q, k, v, o, do, dq, dk, dv)),
+            lse.data_ptr(), rowdot.data_ptr(), b, h, hkv, sq, sk, d,
+            sm_scale, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {rc} (B={b} H={h} Hkv={hkv} Sq={sq} "
+                           f"Sk={sk} d={d} {q.dtype})")
+    LAUNCHES["backward_" + _type_name(q)] += 1
+    return dq, dk, dv
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, *t.shape[2:])
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward: the port of ``_flash``'s custom
+    VJP (src/repro/models/attention.py).  The forward saves ``q, k, v,
+    out, lse``; the backward recomputes the probabilities from the lse, so
+    no ``[S, S]`` tensor is kept.  ``backend`` is resolved already:
+    ``"cuda"`` launches the kernels, ``"reference"`` runs the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, backend: str):
+        b, h, sq, d = q.shape
+        hkv = k.shape[1]
+        if backend == "cuda":
+            out, lse = _launch(q, k, v, causal, 1.0 / d ** 0.5,
+                               with_lse=True)
+        else:
+            out, lse = attention_fwd_ref(_flat(q), _flat(k), _flat(v),
+                                         q_heads=h, kv_heads=hkv,
+                                         causal=causal)
+            out, lse = out.reshape(b, h, sq, d), lse.reshape(b, h, sq)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.backend = causal, backend
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        b, h, sq, d = q.shape
+        hkv, sk = k.shape[1], k.shape[2]
+        if ctx.backend == "cuda":
+            dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                     1.0 / d ** 0.5)
+        else:
+            dq, dk, dv = attention_bwd_ref(
+                _flat(q), _flat(k), _flat(v), _flat(out),
+                lse.reshape(b * h, sq), _flat(dout), q_heads=h,
+                kv_heads=hkv, causal=ctx.causal)
+            dq = dq.reshape(b, h, sq, d)
+            dk, dv = dk.reshape(b, hkv, sk, d), dv.reshape(b, hkv, sk, d)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -107,7 +225,8 @@ def flash_attention(
     q's type.  Causal masking is top-left (query position >= key
     position).  Strided views (unit stride along ``d``) go in uncopied.
     The kernel fixes its own tiles and masks ragged edges, so no length has
-    to divide them.
+    to divide them.  Differentiable: under autograd the call goes through
+    :class:`FlashAttention`.
     """
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
@@ -115,7 +234,10 @@ def flash_attention(
             k.shape) or hkv < 1 or h % hkv):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if resolve_backend(backend, q) == "cuda":
+    backend = resolve_backend(backend, q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, backend)
+    if backend == "cuda":
         return _launch(q, k, v, causal, 1.0 / d ** 0.5)
     out = attention_ref(q.reshape(b * h, sq, d), k.reshape(b * hkv, sk, d),
                         v.reshape(b * hkv, sk, d), q_heads=h, kv_heads=hkv,

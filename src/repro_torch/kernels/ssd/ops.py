@@ -8,6 +8,9 @@ Nothing falls back: a CUDA tensor goes through the kernel or raises.
 ``LAUNCHES`` counts calls that launched the kernel (one per call, although
 a call issues three CUDA kernels: chunk states, the pass over the
 chunks, the scan), so a run can show that its path went through it.
+The kernel has no backward yet: a CUDA call whose float inputs need a
+gradient raises (``refuse_grad``), so Mamba-2 and Zamba2 train only on
+the CPU until it has one.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.bitlinear.ops import refuse_grad
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
 
 BACKENDS = ("auto", "reference", "naive", "cuda")
@@ -152,6 +156,8 @@ def ssd(
             raise ValueError(f"{label} {tuple(t.shape)} != {want[label]} "
                              f"(dtx {tuple(dtx.shape)})")
     if _resolve(backend, dtx) == "cuda":
+        refuse_grad("ssd", "ROADMAP.md Queue 1, item 4: the SSD backward",
+                    dta, dtx, b, c)
         if not split:
             dta, dtx, b, c = (t.unsqueeze(0) for t in (dta, dtx, b, c))
         y, h = _launch(dta, dtx, b, c, chunk, return_state)

@@ -4,6 +4,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.quant.bitnet import fake_quant_act, fake_quant_weight
 
@@ -88,3 +89,34 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
                device) -> torch.Tensor:
     w = torch.randn((vocab, d_model), generator=gen, device=device)
     return (w * 0.02).to(dtype)
+
+
+def best_grouping(layers: int) -> int:
+    """Divisor G of ``layers`` minimizing G + layers/G: the JAX package's
+    two-level sqrt-remat grouping, a memory schedule of its scan over
+    layers (G outer carries plus one group's inner ones).  The port's
+    Python loop over layers keeps one carry a layer either way, so its
+    remat (:func:`maybe_remat`) is one level and nothing in the port calls
+    this: it is the JAX function's counterpart, held equal to it by a test,
+    for a caller that plans the JAX schedule."""
+    best = 1
+    for g in range(1, layers + 1):
+        if layers % g == 0 and (g + layers // g) < (best + layers // best):
+            best = g
+    return best
+
+
+def maybe_remat(fn, cfg):
+    """``fn`` recomputed in the backward instead of keeping its
+    activations when ``cfg.remat`` is not ``"none"`` (the JAX package's
+    ``jax.checkpoint`` of one block): ``torch.utils.checkpoint`` without
+    reentrance, which keeps only the inputs.  The recomputation runs the
+    same operations, so gradients do not change."""
+    if cfg.remat == "none":
+        return fn
+
+    def wrapped(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+
+    return wrapped

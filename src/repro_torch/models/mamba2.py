@@ -32,7 +32,7 @@ from repro_torch.models.common import (
     embed_init,
     rms_norm,
 )
-from repro_torch.models.transformer import _layer, _stack
+from repro_torch.models.transformer import _layers, _stack
 
 
 class SSMCache(NamedTuple):
@@ -183,8 +183,9 @@ def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
     ``blocks``) in order.  With ``cache`` (stacked ``[L, ...]``) prefill
     (``decode=False``) and decode write each layer's conv and SSD states
     in place."""
+    per_layer = _layers(blocks)
     for i in layers:
-        lp = _layer(blocks, i)
+        lp = per_layer[i]
         h = rms_norm(x, lp["ln"])
         if cache is None:
             y, _, _ = ssm_block(lp["ssm"], cfg, h)

@@ -107,8 +107,8 @@ def moe_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def load_balance_loss(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Switch-style auxiliary loss (mean prob x mean dispatch per expert);
-    forward only."""
+    """Switch-style auxiliary loss (mean prob x mean dispatch per expert),
+    differentiable through the router probabilities."""
     probs, _, idx = route(p, cfg, x.reshape(-1, x.shape[-1]))
     dispatch = torch.nn.functional.one_hot(
         idx, cfg.n_experts).to(torch.float32).sum(dim=1)

@@ -24,7 +24,7 @@ class ModelAPI:
     device: torch.device
     init: Callable                 # (seed | torch.Generator) -> params
     train_logits: Callable         # (params, batch) -> logits
-    loss: Callable                 # (params, batch) -> scalar (forward only)
+    loss: Callable                 # (params, batch) -> scalar, differentiable
     init_cache: Callable           # (batch, max_seq) -> cache
     prefill: Callable              # (params, batch, cache) -> (logits, cache)
     # (params, token, cache, pos) -> (logits, cache); None for an encoder

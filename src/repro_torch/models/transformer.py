@@ -25,6 +25,7 @@ from repro_torch.models.common import (
     dense_init,
     dtype_of,
     embed_init,
+    maybe_remat,
     rms_norm,
     swiglu,
 )
@@ -87,10 +88,14 @@ def init_params(cfg, gen: torch.Generator, device) -> Dict:
 # Blocks
 # --------------------------------------------------------------------------- #
 
-def _layer(blocks, i: int):
+def _layers(blocks):
+    """The stacked ``[L, ...]`` tree as ``L`` per-layer trees (views: one
+    ``unbind``, so the gradient of a stacked leaf is assembled once)."""
     if isinstance(blocks, dict):
-        return {k: _layer(v, i) for k, v in blocks.items()}
-    return blocks[i]
+        per_key = {k: _layers(v) for k, v in blocks.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: per_key[k][i] for k in blocks} for i in range(n)]
+    return blocks.unbind(0)
 
 
 def _block(cfg, p, x, positions, cache=None, cache_pos=None):
@@ -109,13 +114,24 @@ def _block(cfg, p, x, positions, cache=None, cache_pos=None):
     return x, new_cache
 
 
+def _train_block(cfg, p, x, positions):
+    return _block(cfg, p, x, positions)[0]
+
+
 def _run_blocks(cfg, blocks, x, positions, caches=None, cache_pos=None):
     """Every layer in order; ``caches`` (stacked ``[L, ...]``) are written
-    in place, layer by layer."""
-    for i in range(cfg.layers):
+    in place, layer by layer.  Without caches and with grad enabled (the
+    train path) each block is rematerialized as ``cfg.remat`` says."""
+    layers = _layers(blocks)
+    if caches is None and torch.is_grad_enabled():
+        block = maybe_remat(lambda p, x: _train_block(cfg, p, x, positions),
+                            cfg)
+        for p in layers:
+            x = block(p, x)
+        return x, caches
+    for i, p in enumerate(layers):
         cache = None if caches is None else KVCache(caches.k[i], caches.v[i])
-        x, _ = _block(cfg, _layer(blocks, i), x, positions, cache=cache,
-                      cache_pos=cache_pos)
+        x, _ = _block(cfg, p, x, positions, cache=cache, cache_pos=cache_pos)
     return x, caches
 
 
@@ -133,7 +149,11 @@ def _embed_inputs(cfg, params, batch):
         # stub frontend: precomputed frame embeddings [B, S, d]
         x = dense(batch["frames"], params["frontend"]["proj"])
     else:
-        x = params["embed"]["tokens"][batch["tokens"]]
+        # F.embedding's backward sums each row's gradient in a fixed order
+        # (indexing's accumulates with atomics on the CPU), so a resumed
+        # training run equals an uninterrupted one bit for bit
+        x = torch.nn.functional.embedding(batch["tokens"].long(),
+                                          params["embed"]["tokens"])
         if cfg.frontend == "vision_patches":
             # stub ViT: precomputed patch embeddings prepended to the text
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)

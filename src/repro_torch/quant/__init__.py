@@ -1,8 +1,9 @@
-"""BitNet-style quantization: fake-quant forward + sub-byte packing."""
+"""BitNet-style quantization: fake-quant with STE + sub-byte packing."""
 from repro_torch.quant import bitnet, packing
 from repro_torch.quant.bitnet import (
     QuantizedTensor,
     bit_linear_serve,
+    bit_linear_train,
     fake_quant_act,
     fake_quant_weight,
     pack_weight_ternary,

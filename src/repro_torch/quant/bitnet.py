@@ -1,11 +1,12 @@
 """BitNet b1.58 quantization — the model side of the paper's workloads.
 
-Forward only: ternary absmean weights and per-token absmax int8
-activations, as fake-quant (the values a quantized forward computes with)
-and as real serving-side tensors consumed by the bitlinear CUDA kernel.
-Training (the straight-through estimator) waits for the port's train
-slice; the fake-quant functions keep the JAX package's expression
-``x + (xq - x)`` so that forward values agree bit for bit.
+Training uses fake-quant with straight-through estimators (QAT, the BitNet
+recipe): ternary absmean weights and per-token absmax int8 activations,
+whose forward value is dequant(quant(x)) and whose gradient is the
+identity.  Serving materializes the real packed-ternary weights consumed
+by the bitlinear CUDA kernel.  The fake-quant functions keep the JAX
+package's expression ``x + stop_gradient(xq - x)`` (``.detach()`` here),
+so that forward values agree bit for bit.
 """
 from __future__ import annotations
 
@@ -56,10 +57,10 @@ def pack_weight_ternary(w: torch.Tensor) -> QuantizedTensor:
 
 
 def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
-    """Ternary fake-quant: forward value dequant(quant(w))."""
+    """Ternary fake-quant with STE: forward = dequant(quant(w)), grad = 1."""
     q, gamma = quantize_weight_ternary(w)
     wq = q.to(w.dtype) * gamma.to(w.dtype)
-    return w + (wq - w)
+    return w + (wq - w).detach()
 
 
 # --------------------------------------------------------------------------- #
@@ -77,15 +78,25 @@ def quantize_act_int8(x: torch.Tensor, axis: int = -1):
 
 
 def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
-    """Per-token int8 fake-quant: forward value dequant(quant(x))."""
+    """Per-token int8 fake-quant with STE."""
     s = act_scale(x)
     xq = torch.clamp(torch.round(x / s), -128, 127) * s
-    return x + (xq.to(x.dtype) - x)
+    return x + (xq.to(x.dtype) - x).detach()
 
 
 # --------------------------------------------------------------------------- #
-# BitLinear serving: y = int8(x) @ unpack(W_packed) * scales
+# BitLinear: y = act_fq(x) @ weight_fq(W)    (QAT path)
+#            y = int8(x) @ unpack(W_packed) * scales (serving path)
 # --------------------------------------------------------------------------- #
+
+def bit_linear_train(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """QAT forward: fake-quantized activations x fake-quantized weights.
+
+    ``x`` is assumed pre-normalized (BitLinear wraps RMSNorm before quant,
+    done by the caller).
+    """
+    return fake_quant_act(x) @ fake_quant_weight(w)
+
 
 def bit_linear_serve(
     x: torch.Tensor, qw: QuantizedTensor, *, backend: str = "reference",
@@ -100,6 +111,8 @@ def bit_linear_serve(
     """
     if backend == "cuda":
         from repro_torch.kernels.bitlinear import ops as bl_ops
+        # the int8 cast below would cut the graph before the kernel's check
+        bl_ops.refuse_grad("bitlinear", bl_ops.NO_BACKWARD, x)
         k, n = qw.shape
         w_kmajor = packing.pack_2bit_kmajor(
             packing.unpack(qw.packed, qw.bits).reshape(k, n))

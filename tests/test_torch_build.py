@@ -1,6 +1,6 @@
 """The kernel build's library name: its digest covers the source, every
 shared header of csrc/ and the flags, so that a changed header rebuilds;
-and the ablation tool's text anchors in the kernel source."""
+and the text anchors of the tools that build kernel variants."""
 from pathlib import Path
 
 from repro_torch.kernels import build
@@ -19,16 +19,21 @@ def test_changed_header_changes_library_path(tmp_path, monkeypatch):
     assert build.library_path("k") not in (first, second)
 
 
+def _tool(name):
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
 def test_ablation_variants_apply_to_kernel_source():
     """tools/bitlinear_ablations.py builds its variants by text
     substitution of bitlinear.cu: every anchor must still be found in the
     committed source, and every variant must differ from the base."""
-    import importlib.util
-
-    path = Path(__file__).resolve().parents[1] / "tools" / "bitlinear_ablations.py"
-    spec = importlib.util.spec_from_file_location("bitlinear_ablations", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _tool("bitlinear_ablations")
     src = (Path(build.CSRC) / "bitlinear.cu").read_text()
     out = tool.variants(src)
     assert out["base"] == src
@@ -36,3 +41,20 @@ def test_ablation_variants_apply_to_kernel_source():
             "one_capacity", "timeline"} <= set(out)
     for name, text in out.items():
         assert name == "base" or text != src, name
+
+
+def test_single_rounding_variant_applies_to_backward_source():
+    """tools/flash_bwd_rounding.py rounds ds once by turning the backward's
+    two split products (dk += ds^T q, dq += ds k) into single ones: both
+    anchors must be in the committed source, and a source without them is
+    refused rather than built unchanged."""
+    import pytest
+
+    tool = _tool("flash_bwd_rounding")
+    src = (Path(build.CSRC) / "flash_attention_bwd.cu").read_text()
+    out = tool.single_rounding(src)
+    assert tool.SPLIT not in out
+    assert out.count("acc_rows<DP, false>") == src.count(
+        "acc_rows<DP, false>") + 2
+    with pytest.raises(ValueError, match="two"):
+        tool.single_rounding(out)

@@ -646,3 +646,118 @@ def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+# --------------------------------------------------------------------------- #
+# flash backward: the kernels against the plain backward on the card, on the
+# same values; float32 at the JAX custom-VJP test's rtol 2e-3 / atol 2e-4,
+# bfloat16 at the JAX bf16 flash test's 2e-2 (gradients rounded to bf16);
+# the forward's lse within the float32 forward tolerance
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 4, 4, 100, 100, 32, True), (2, 4, 2, 130, 130, 112, True),
+    (1, 8, 1, 64, 200, 64, False), (1, 4, 4, 77, 150, 128, True),
+    (1, 2, 2, 150, 77, 16, True), (1, 16, 16, 512, 512, 128, True),
+    (2, 32, 8, 256, 256, 128, True), (1, 3, 3, 1, 1, 8, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain_version(card, b, h, hkv, sq, sk,
+                                                     d, causal, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_ref,
+    )
+
+    q, k, v = _bshd_views(b, h, hkv, sq, sk, d, dtype, b + h + sq + d, card)
+    do = _bshd_views(b, h, h, sq, sq, d, dtype, 7 + d, card)[0]
+    name = str(dtype).split(".")[1]
+    before = dict(fa.LAUNCHES)
+    scale = 1.0 / d ** 0.5
+    o, lse = fa._launch(q, k, v, causal, scale, with_lse=True)
+    grads = fa._launch_bwd(q, k, v, o, lse, do, causal, scale)
+    again = fa._launch_bwd(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["lse_" + name] == before["lse_" + name] + 1
+    assert fa.LAUNCHES["backward_" + name] == before["backward_" + name] + 2
+    for got, other in zip(grads, again):           # no atomics: repeatable
+        assert torch.equal(got, other)
+
+    flat = lambda t: t.float().reshape(-1, t.shape[2], d)  # noqa: E731
+    kw = dict(q_heads=h, kv_heads=hkv, causal=causal)
+    _, lse_ref = attention_fwd_ref(flat(q), flat(k), flat(v), **kw)
+    torch.testing.assert_close(lse.reshape(-1, sq), lse_ref, rtol=2e-4,
+                               atol=2e-5)
+    want = attention_bwd_ref(flat(q), flat(k), flat(v), flat(o), lse_ref,
+                             flat(do), **kw)
+    tol = (dict(rtol=2e-3, atol=2e-4) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    for got, ref, t in zip(grads, want, (q, k, v)):
+        assert got.dtype == dtype and got.shape == t.shape
+        torch.testing.assert_close(got.float().reshape(ref.shape), ref,
+                                   **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_flows_through_the_kernels(card, dtype):
+    """Under autograd the flash call records its backward: q.grad, k.grad
+    and v.grad are set, through the lse forward and the backward kernel,
+    equal to autograd through the plain version at the same output
+    gradient (2 out, out as the kernel computed it: a bf16 output rounded
+    otherwise than the float32 plain one would move the cotangent)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    base = [t.detach().requires_grad_() for t in _bshd_views(
+        1, 8, 2, 300, 300, 64, dtype, 5, card)]
+    name = str(dtype).split(".")[1]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*base, causal=True)
+    assert out.grad_fn is not None
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["lse_" + name] == before["lse_" + name] + 1
+    assert fa.LAUNCHES["backward_" + name] == before["backward_" + name] + 1
+    assert fa.LAUNCHES[name] == before[name]
+    ref = [t.detach().float().requires_grad_() for t in base]
+    attention_ref(ref[0].reshape(8, 300, 64), ref[1].reshape(2, 300, 64),
+                  ref[2].reshape(2, 300, 64), q_heads=8, kv_heads=2
+                  ).backward(2 * out.detach().float().reshape(8, 300, 64))
+    tol = (dict(rtol=2e-3, atol=2e-4) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    for t, r in zip(base, ref):
+        assert t.grad is not None and t.grad.dtype == dtype
+        torch.testing.assert_close(t.grad.float(), r.grad, **tol)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad(card):
+    """The SSD, block-sparse and bitlinear CUDA routes have no backward: a
+    call whose float inputs need a gradient raises, never falls back to the
+    plain version, and the same call without a gradient runs."""
+    from repro_torch.kernels.block_sparse import ops as bs_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.quant.bitnet import bit_linear_serve, pack_weight_ternary
+
+    dta, dtx, b, c = _ssd_operands(1, 2, 32, 8, 8, 1, card)
+    before = ssd_ops.LAUNCHES["float32"]
+    with pytest.raises(RuntimeError, match="ssd CUDA kernel has no backward"):
+        ssd_ops.ssd(dta, dtx.requires_grad_(), b, c, chunk=32)
+    assert ssd_ops.LAUNCHES["float32"] == before
+    with torch.no_grad():
+        ssd_ops.ssd(dta, dtx, b, c, chunk=32)
+
+    x, w, mask = _sparse_operands(8, 256, 128, 128, 64, 0.5, torch.float32,
+                                  2, card)
+    with pytest.raises(RuntimeError, match="block_sparse CUDA kernel"):
+        bs_ops.ztb_matmul(x.requires_grad_(), w, mask, bk=128, bn=64)
+    with torch.no_grad():
+        bs_ops.ztb_matmul(x, w, mask, bk=128, bn=64)
+
+    qw = pack_weight_ternary(torch.randn((256, 64), device=card))
+    xs = torch.randn((4, 256), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="bitlinear CUDA kernel"):
+        bit_linear_serve(xs, qw, backend="cuda")
+    bit_linear_serve(xs.detach(), qw, backend="cuda")
+    torch.cuda.synchronize()

@@ -4,8 +4,12 @@ kernel in interpret mode, on the same seeded inputs.
 
 Tolerances are the JAX package's own (tests/test_kernels.py): float32
 rtol 2e-4 / atol 2e-5 (full softmax against the online one, summed in
-another order), bfloat16 2e-2 (outputs rounded to bf16 on both sides).
+another order), bfloat16 2e-2 (outputs rounded to bf16 on both sides); the
+gradients against ``jax.vjp`` of ``_flash_ref`` (the custom VJP the JAX
+model trains through) rtol 2e-3 / atol 2e-4, as its own test
+(``test_flash_custom_vjp_grads``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,11 +18,15 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention as pallas
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models.attention import _flash_fwd_impl, _flash_ref
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_fwd_ref, attention_ref,
+)
 
 F32 = dict(rtol=2e-4, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+GRAD = dict(rtol=2e-3, atol=2e-4)
 
 
 def _qkv(b, h, hkv, sq, sk, d, seed=0):
@@ -98,7 +106,9 @@ def test_wrapper_refuses_bad_calls():
         ops.flash_attention(q, k, v, backend="pallas")
     with pytest.raises(ValueError):
         ops.flash_attention(q, k[:, :1].expand(1, 3, 16, 8), v)   # 4 % 3
-    assert ops.LAUNCHES == {"float32": 0, "bfloat16": 0}
+    assert ops.LAUNCHES == {
+        "float32": 0, "bfloat16": 0, "lse_float32": 0, "lse_bfloat16": 0,
+        "backward_float32": 0, "backward_bfloat16": 0}
 
 
 @pytest.mark.parametrize("shape,strides,ptr,why", [
@@ -137,3 +147,73 @@ def test_tma_layout_rules_on_tensor_views():
     shifted = base[..., 1:113].transpose(1, 2)
     assert "aligned" in ops.tma_layout_error(
         shifted.shape, shifted.stride(), shifted.data_ptr())
+
+
+def _bshd(b, s, h, hkv, d, seed):
+    """q [B, S, H, d], k / v [B, S, Hkv, d] and an output gradient, the
+    layout of the JAX model's ``_flash_ref``."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, heads, d)).astype(np.float32)
+                 for heads in (h, hkv, hkv, h))
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_against_jax_custom_vjp(h, hkv, causal):
+    """``attention_fwd_ref``'s lse and ``attention_bwd_ref``, and the flash
+    Function's CPU backward through autograd, against ``jax.vjp`` of
+    ``_flash_ref`` (tiles of 64 queries x 32 keys) on the same values."""
+    b, s, d = 2, 128, 16
+    q, k, v, g = _bshd(b, s, h, hkv, d, h * 10 + hkv + causal)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, vjp = jax.vjp(lambda *a: _flash_ref(*a, causal=causal, bq=64,
+                                             bk=32), jq, jk, jv)
+    dq, dk, dv = vjp(jnp.asarray(g))
+    # JAX's lse [b, hkv, group, s] is [b, h, s] with h = hk * group + i
+    _, jlse = _flash_fwd_impl(jq, jk, jv, 0, causal, 64, 32)
+
+    def flat(a):           # [B, S, heads, d] -> [B*heads, S, d]
+        return torch.from_numpy(a).transpose(1, 2).reshape(-1, s, d)
+
+    def bshd(t, heads):    # and back
+        return t.reshape(b, heads, s, d).transpose(1, 2).numpy()
+
+    kw = dict(q_heads=h, kv_heads=hkv, causal=causal)
+    o, lse = attention_fwd_ref(flat(q), flat(k), flat(v), **kw)
+    np.testing.assert_allclose(bshd(o, h), np.asarray(out), **F32)
+    np.testing.assert_allclose(lse.reshape(b, h, s).numpy(),
+                               np.asarray(jlse).reshape(b, h, s), **F32)
+    grads = attention_bwd_ref(flat(q), flat(k), flat(v), o, lse, flat(g),
+                              **kw)
+    for got, heads, want in zip(grads, (h, hkv, hkv), (dq, dk, dv)):
+        np.testing.assert_allclose(bshd(got, heads), np.asarray(want),
+                                   **GRAD)
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    # the attention layer's call: [B, S, H, d] tensors as [B, H, S, d] views
+    to = ops.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                             tv.transpose(1, 2), causal=causal)
+    to.transpose(1, 2).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(to.detach().transpose(1, 2).numpy(),
+                               np.asarray(out), **F32)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), (dq, dk, dv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
+
+
+def test_function_only_under_autograd():
+    """The serve path (no gradient wanted) returns a tensor without a
+    ``grad_fn``; with one it goes through ``FlashAttention``, whose
+    gradients equal autograd through the plain forward."""
+    q, k, v = (torch.from_numpy(a).transpose(1, 2)
+               for a in _bshd(1, 64, 4, 2, 8, 3)[:3])
+    assert ops.flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert ops.flash_attention(q.requires_grad_(), k, v).grad_fn is None
+    out = ops.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.square().sum().backward()
+    want_q = q.detach().clone().requires_grad_()
+    attention_ref(want_q.reshape(4, 64, 8), k.reshape(2, 64, 8),
+                  v.reshape(2, 64, 8), q_heads=4, kv_heads=2
+                  ).square().sum().backward()
+    np.testing.assert_allclose(q.grad.numpy(), want_q.grad.numpy(), **GRAD)

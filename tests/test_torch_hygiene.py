@@ -46,6 +46,10 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.obs.roofline, repro_torch.obs.loadgen\n"
         "from repro_torch.obs import TimelineTracer, run_load\n"
         "import repro_torch.serve.paged_kv, repro_torch.serve.admission\n"
+        "import repro_torch.train, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.fault_tolerance\n"
+        "from repro_torch.train import AdamW, Checkpointer, TrainingRunner\n"
+        "from repro_torch.convert import train_state_from_jax\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -61,15 +65,24 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", ["build_model", "Machine",
-                                   "LegionServeBackend", "params_from_jax"])
-def test_entry_points_raise_without_device_and_card(entry):
+                                   "LegionServeBackend", "params_from_jax",
+                                   "init_train_state", "build_train_step",
+                                   "train_state_from_jax",
+                                   "Checkpointer.restore", "TrainingRunner"])
+def test_entry_points_raise_without_device_and_card(entry, tmp_path):
     _no_card()
     import repro_torch.configs as configs
-    from repro_torch.convert import params_from_jax
+    from repro_torch.convert import params_from_jax, train_state_from_jax
     from repro_torch.core import dlegion
     from repro_torch.legion import Machine
     from repro_torch.models import build_model
     from repro_torch.serve import LegionServeBackend
+    from repro_torch.train import (
+        AdamW, Checkpointer, TrainingRunner, build_train_step,
+        init_train_state,
+    )
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_loop import TrainState
 
     cfg = configs.reduced(configs.get_config("bitnet-1.58b"))
     params = build_model(cfg, device="cpu").init(0)
@@ -79,6 +92,16 @@ def test_entry_points_raise_without_device_and_card(entry):
         "LegionServeBackend": lambda: LegionServeBackend(dlegion(), cfg,
                                                          params),
         "params_from_jax": lambda: params_from_jax({"w": [[1.0]]}),
+        # the train path starts from a model built for the card
+        "init_train_state": lambda: init_train_state(build_model(cfg),
+                                                     AdamW(), 0),
+        "build_train_step": lambda: build_train_step(build_model(cfg),
+                                                     AdamW()),
+        "train_state_from_jax": lambda: train_state_from_jax(TrainState(
+            {"w": [[1.0]]}, AdamWState(0, {"w": [[0.0]]}, {"w": [[0.0]]}))),
+        "Checkpointer.restore": lambda: Checkpointer(str(tmp_path)).restore(),
+        "TrainingRunner": lambda: TrainingRunner(
+            None, None, None, Checkpointer(str(tmp_path))),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
