@@ -259,6 +259,29 @@ def device_us(fn, iters: int, kernels, per_call: int = 1,
     return None
 
 
+def all_device_us(fn, iters: int, attempts: int = 3):
+    """Device time per call of everything ``iters`` calls of ``fn`` ran on
+    the card (kernels, copies and fills), from torch.profiler's CUDA
+    activity: the yardstick of a PyTorch call whose kernels the port does
+    not name.  A trace that holds none is taken again (``attempts`` in
+    all), then None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        total = sum(evt.time_range.elapsed_us() for evt in prof.events()
+                    if evt.device_type == DeviceType.CUDA)
+        if total:
+            return total / iters
+    return None
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -1880,10 +1903,11 @@ def phase_families_model():
 
 
 # (a) D = rowsum(dout * out), (b) dk / dv, (c) dq: bf16 on the tensor cores
-# (the _mma kernels), float32 on the CUDA cores
+# (the _wgmma kernels), float32 on the CUDA cores; three a call
 FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel", "flash_bwd_dkdv_kernel",
-                     "flash_bwd_dq_kernel", "flash_bwd_dkdv_mma_kernel",
-                     "flash_bwd_dq_mma_kernel")
+                     "flash_bwd_dq_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                     "flash_bwd_dq_wgmma_kernel")
+FLASH_BWD_KERNELS_PER_CALL = 3
 
 
 # (label, H, Hkv, S, d, causal, type, dout): the BitNet-1.58B train shape,
@@ -2048,14 +2072,13 @@ def phase_flash_bwd():
         qc, kc, vc = (t.contiguous().requires_grad_() for t in (q, k, v))
         doc = do.contiguous()
         gqa = {"enable_gqa": True} if hkv != h else {}
-
-        def sdpa(i, backward):
-            out = F.scaled_dot_product_attention(qc, kc, vc,
-                                                 is_causal=causal, **gqa)
-            if backward:
-                qc.grad = kc.grad = vc.grad = None
-                out.backward(doc)
-        iters = 3 if s > 1024 else 10
+        # SDPA's backward alone: one forward keeps its graph, and each call
+        # differentiates it again
+        sdpa_out = F.scaled_dot_product_attention(qc, kc, vc,
+                                                  is_causal=causal, **gqa)
+        sdpa_bwd = lambda i: torch.autograd.grad(             # noqa: E731
+            sdpa_out, (qc, kc, vc), doc, retain_graph=True)
+        iters = 10
         bound, by = flash_bwd_bound(1, h, hkv, s, s, d, causal,
                                     2 if dtype == torch.bfloat16 else 4)
         grads = {key: v for key, v in errs.items() if key[:2] in
@@ -2069,16 +2092,17 @@ def phase_flash_bwd():
             "lse_max_abs_err": errs["lse"], "tolerance": tol,
             "atol_rms_bound": BWD_ATOL_RMS[str(dtype)[6:]],
             "ms": cuda_ms(call, iters),
-            "device_us": device_us(call, 2, FLASH_BWD_KERNELS, per_call=3),
+            "device_us": device_us(call, 2, FLASH_BWD_KERNELS,
+                                   per_call=FLASH_BWD_KERNELS_PER_CALL,
+                                   attempts=4),
             "plain_ms": cuda_ms(lambda i: attention_bwd_ref(
                 flat(q), flat(k), flat(v), flat(o), lse.reshape(-1, s),
                 flat(do), q_heads=h, kv_heads=hkv, causal=causal), 2),
-            # SDPA's backward: forward + backward less the forward
-            "library_ms": (cuda_ms(lambda i: sdpa(i, True), iters)
-                           - cuda_ms(lambda i: sdpa(i, False), iters)),
+            "library_ms": cuda_ms(sdpa_bwd, iters),
+            "library_device_us": all_device_us(sdpa_bwd, 2),
             "bound_ms": bound, "bound_by": by,
         })
-        del q, k, v, do, o, lse, qc, kc, vc, doc, errs
+        del q, k, v, do, o, lse, qc, kc, vc, doc, sdpa_out, errs
         torch.cuda.empty_cache()
     for r in rows:
         emit(dict(phase="flash_bwd", **r))
@@ -2303,7 +2327,8 @@ def phase_train():
           "grad_norms": norms, "step_seconds": seconds,
           "tokens_per_second": seq / (sum(seconds[1:]) / (steps - 1)),
           "peak_memory_bytes": peak, "flash_launches": got,
-          "flash_kernels_per_call": {"forward": 1, "backward": 3},
+          "flash_kernels_per_call": {
+              "forward": 1, "backward": FLASH_BWD_KERNELS_PER_CALL},
           "traced_step": {"wall_seconds": traced_s,
                           "device_ms": device_ms if by_name else None,
                           "device_idle_share": (1 - device_ms
@@ -2435,9 +2460,10 @@ def main() -> int:
             for r in fa_rows[3:]],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "ported": 18,
+        "redesigned": 19,
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:114",
-        "kernels_per_call": 3,
+        "kernels_per_call": FLASH_BWD_KERNELS_PER_CALL,
         "launches": sum(bwd_launches.values()),
         "launches_by_phase": bwd_launches,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
@@ -2448,10 +2474,12 @@ def main() -> int:
         "bound_ms": bwd_rows[0]["bound_ms"],
         "bound_by": bwd_rows[0]["bound_by"],
         "library_ms": bwd_rows[0]["library_ms"],
+        "library_device_us": bwd_rows[0]["library_device_us"],
         "other_shapes": [{k: r[k] for k in (
             "shape", "h", "hkv", "s", "d", "dtype", "causal", "max_abs_err",
-            "ms", "device_us", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")} for r in bwd_rows[1:]],
+            "ms", "device_us", "plain_ms", "library_ms",
+            "library_device_us", "bound_ms", "bound_by")}
+            for r in bwd_rows[1:]],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

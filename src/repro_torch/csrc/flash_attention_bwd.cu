@@ -19,28 +19,46 @@
 // output, so that no float atomics are needed and a run is deterministic
 // (a resumed training run equals an uninterrupted one bit for bit):
 //   (a) flash_bwd_dot_kernel: D = rowsum(dout * out), one warp per row;
-//   (b) dk and dv: one block per (batch, KV head, 64-key tile) loops over
-//       the group's query heads and the query tiles that see its keys,
+//   (b) dk and dv: one block per (batch, KV head, key tile) loops over the
+//       group's query heads and the query tiles that see its keys,
 //       recomputing s and p, and keeps dk and dv for its keys in registers
 //       until it writes them once;
-//   (c) dq: one block per (batch, head, 64-query tile) loops over the key
+//   (c) dq: one block per (batch, head, query tile) loops over the key
 //       tiles its queries see and writes dq once.
 // (b) and (c) both recompute s = q k^T and dp = dout v^T: seven products
 // in all where the JAX function's scan takes five.
 //
-// bfloat16 (the training path): flash_bwd_dkdv_mma_kernel and
-// flash_bwd_dq_mma_kernel, four warps of 16 rows a block over tiles of 32,
-// every product on the tensor cores as mma.sync m16n8k16 (bf16 operands
-// through ldmatrix from padded shared memory, float32 accumulators).  (b)
-// computes the transposed scores s^T = k q^T, so p^T and ds^T leave their
-// accumulators as the A operands of dv += p^T dout and dk += ds^T q without
-// a trip through shared memory; (c) does the same for dq += ds k.  p enters
-// its product rounded once to bf16; ds enters as two bf16 terms, ds_hi +
-// ds_lo, as the forward kernel splits p: each row of ds sums to zero, and
-// with one rounding a row whose query sees few keys lost that cancellation
-// (q.grad off by 0.027 at a value of 0.11 on an H100 with dout = 2 out).
-// The head dimension is padded to a multiple of 16 (a template argument, so
-// the accumulators are register arrays).
+// bfloat16 (the training path): flash_bwd_dkdv_wgmma_kernel and
+// flash_bwd_dq_wgmma_kernel, shaped after FlashAttention-3's backward on
+// the machinery of the forward's flash_kernel_bf16_wgmma (hopper.cuh).  A
+// block of 384 threads keeps 128 rows resident (keys in (b), queries in
+// (c)): two consumer warpgroups own 64 rows each, and one producer warp,
+// its warpgroup's registers lowered with setmaxnreg, streams tiles of 64
+// rows of the other side (q and dout in (b), k and v in (c)) by TMA through
+// a three-stage ring with mbarriers for full and empty slots.  Every tile
+// is two 64-column TMA boxes with the 128-byte swizzle, so d is padded to
+// 128 by TMA's out-of-bounds zero fill, as are rows beyond Sq and Sk: any
+// d <= 128 that is a multiple of 8 runs one kernel, KS = ceil(d / 16) k16
+// steps a template argument, so no product is issued under a run-time
+// condition.  (b) computes the transposed scores s^T = k q^T and
+// dp^T = v dout^T as wgmma with both operands in shared memory; p^T and
+// ds^T are formed in float32 registers and enter dv += p^T dout and
+// dk += ds^T q as A fragments from registers, dout and q read transposed
+// from shared memory as the forward reads v.  (c) does the same for
+// s = q k^T, dp = dout v^T and dq += ds k.  p enters its product rounded
+// once to bf16; ds enters as two bf16 terms, ds_hi + ds_lo, two wgmma into
+// one float32 accumulator, as the forward splits p: each row of ds sums to
+// zero, and with one rounding a row whose query sees few keys lost that
+// cancellation (q.grad off by 0.027 at a value of 0.11 on an H100 with
+// dout = 2 out).  Each query tile's lse (in the log2 domain) and D reach
+// (b) through the ring beside its q and dout, stored by the producer warp;
+// (c) reads its rows' own once.  The two consumer warpgroups take turns to
+// issue their products (named barriers), so that one forms p and ds while
+// the other's run.  Heads lie along the grid's x, so every head's longest
+// causal blocks start first.  Above d = 64, dk and dv together with s^T
+// and dp^T need more registers than a consumer gets and ptxas serializes
+// every wgmma, so (b) runs two passes over its query tiles: dv, then dk,
+// s^T recomputed in each.
 // float32 (the reduced card-against-CPU checks): flash_bwd_dkdv_kernel and
 // flash_bwd_dq_kernel, float32 FMA on the CUDA cores from shared memory,
 // 4 x 4 score and 4 x 8 accumulator register tiles a thread, as
@@ -52,24 +70,27 @@
 // (B = 1, H = Hkv = 16, S = 4096, d = 128, causal) 1.72e11 operations,
 // 0.174 ms at the bf16 tensor-core peak (2.56 ms at the float32 CUDA-core
 // peak); the bytes (q, k, v, out, dout read, dq, dk, dv written) take 0.04
-// ms.  mma.sync reaches only part of the wgmma peak, and the two
-// recomputed products add 40 %; wgmma fed by TMA, as the forward kernel
-// is, is the later step.
+// ms.  At d = 128 the kernels issue ten product passes (s three times, dp
+// twice, dv, dk and dq with ds split in two), 0.35 ms of that peak, and the
+// diagonal tiles add a few percent.  Later steps: dq fused into (b) in a
+// fixed key-tile order (its s and dp not recomputed), and the float32
+// kernels on the tensor cores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int THREADS = 256;   // 16 x 16
 constexpr int BQ = 64;         // query rows of a tile: ty + 16 r, r < 4
 constexpr int BK = 64;         // keys of a tile: tx + 16 c, c < 4
 constexpr int DMAX = 128;      // accumulator columns tx + 16 c, c < 8
-
-struct Strides {
-  long long b, h, s;           // elements between batches, heads, positions
-};
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -372,324 +393,506 @@ flash_bwd_dq_kernel(const float* __restrict__ q, Strides sq,
 }
 
 // ------------------------------------------------------------------------- //
-// bfloat16: mma.sync tensor cores
+// bfloat16: TMA + wgmma
 // ------------------------------------------------------------------------- //
-
-constexpr int M_THREADS = 128;   // 4 warps of 16 rows each
-constexpr int M_ROWS = 64;       // keys (dk / dv) or queries (dq) of a block
-constexpr int M_TILE = 32;       // queries (dk / dv) or keys (dq) of a tile
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+constexpr int G_ROWS = 64;                 // rows of a tile and of a warpgroup
+constexpr int G_CONSUMERS = 2;             // consumer warpgroups of a block
+constexpr int G_BLOCK = G_ROWS * G_CONSUMERS;   // resident rows of a block
+constexpr int G_THREADS = 128 * (G_CONSUMERS + 1);
+constexpr int G_BOX_BYTES = G_ROWS * BOX_COLS * 2;   // [64 rows][64] bf16
+constexpr int G_TILE_BYTES = 2 * G_BOX_BYTES;        // d padded to 128
+constexpr int G_STAGES = 3;
+constexpr int G_STATS = 2 * G_ROWS;        // a query tile's lse and D
+constexpr int G_RING_BYTES = G_TILE_BYTES * 2 * (G_CONSUMERS + G_STAGES);
+constexpr int G_SMEM_BYTES = 1024 + G_RING_BYTES + G_STATS * 4 * G_STAGES;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// the output columns of a product over d split at the TMA box
+__host__ __device__ constexpr int n1(int ks) { return ks < 4 ? 16 * ks : 64; }
+__host__ __device__ constexpr int n2(int ks) { return 16 * ks - n1(ks); }
+__host__ __device__ constexpr int n2_regs(int ks) {
+  return n2(ks) > 0 ? n2(ks) / 2 : 1;
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, each lane naming one row.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row)));
-}
+// Shared addresses of the tiles: the resident pair x and y (k and v in
+// (b), q and dout in (c)), 64 rows a consumer warpgroup, then the ring's
+// streamed pairs u and w (q and dout in (b), k and v in (c)); each tile
+// two boxes of 64 columns.
+struct Tiles {
+  uint32_t base;
+  __device__ uint32_t x(int wg) const { return base + G_TILE_BYTES * wg; }
+  __device__ uint32_t y(int wg) const {
+    return base + G_TILE_BYTES * (G_CONSUMERS + wg);
+  }
+  __device__ uint32_t u(int st) const {
+    return base + G_TILE_BYTES * (2 * G_CONSUMERS + st);
+  }
+  __device__ uint32_t w(int st) const {
+    return base + G_TILE_BYTES * (2 * G_CONSUMERS + G_STAGES + st);
+  }
+};
 
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row)));
-}
-
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, float32 accumulator
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [r0, r0 + n) of one (batch, head) of `src` into dst [n][DP + 8],
-// zeros beyond `rows` and in columns D..DP-1; 16-byte copies when `vec`
-// (D % 8 == 0, 16-byte aligned base and strides)
-template <int DP>
-__device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src,
-                                          long long row_stride, int r0,
-                                          int n, int rows, int D, int vec) {
-  constexpr int LD = DP + 8;
-  if (vec) {
-    for (int i = threadIdx.x; i < n * (DP / 8); i += M_THREADS) {
-      const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < rows && c < D)
-        val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * DP; i += M_THREADS) {
-      const int r = i / DP, c = i % DP;
-      dst[r * LD + c] = r0 + r < rows && c < D
-                            ? src[(r0 + r) * row_stride + c]
-                            : __float2bfloat16(0.0f);
-    }
+// d = A B^T over the head dimension in KS k16 steps: A the warpgroup's 64
+// resident rows, B a streamed tile of 64 rows, both K-major; d is the
+// m64n64 float32 fragment.
+template <int KS>
+__device__ __forceinline__ void ss_scores(float (&d)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t off = (ks / 4) * G_BOX_BYTES + (ks % 4) * 32;
+    wgmma_ss_n64(d, smem_desc(a + off, 16, 1024),
+                 smem_desc(b + off, 16, 1024), ks > 0);
   }
 }
 
-// out[16 x 32] = a[16 rows of A, DP] b[32 rows of B, DP]^T: a warp's rows
-// against a tile's 32 rows over the head dimension, four n-tiles of 8
-template <int DP>
-__device__ __forceinline__ void rows_dot(float (&out)[4][4], const bf16* a,
-                                         const bf16* b, int lane) {
-  constexpr int LD = DP + 8;
+// acc += w x over a streamed tile's 64 rows: w [64 x 64] float32 in the
+// m64n64 accumulator layout (thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in
+// w[4 j .. 4 j + 3]) enters as bf16 A fragments from registers: each pair
+// of neighbouring columns packs into one register, and registers
+// 4 kk .. 4 kk + 3 are the m64k16 fragment of step kk.  With SPLIT, w
+// enters as two bf16 terms, w = w_hi + w_lo, two products into the one
+// accumulator (~2^-17 relative).  x is read transposed, its columns split
+// at the TMA box into acc0 (n1) and acc1 (n2).
+template <int KS, bool SPLIT>
+__device__ __forceinline__ void rs_product(float (&acc0)[n1(KS) / 2],
+                                           float (&acc1)[n2_regs(KS)],
+                                           const float (&w)[32], uint32_t x) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[n][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t af[4];
-    ldsm(af, a + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int n2 = 0; n2 < 2; ++n2) {
-      uint32_t bf[4];
-      ldsm(bf, b + (n2 * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
-                   ((lane / 8) % 2) * 8);
-      mma(out[2 * n2], af, bf[0], bf[1]);
-      mma(out[2 * n2 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[16 x DP] += w[16 x 32] x[32 rows, DP]: w from a 16 x 32 accumulator
-// (the C fragments of rows_dot) as bf16 A fragments, x read transposed
-// from shared memory.  With SPLIT, w enters as two bf16 terms, w = w_hi +
-// w_lo, two products into the one accumulator (~2^-17 relative, as the
-// forward kernel splits p)
-template <int DP, bool SPLIT>
-__device__ __forceinline__ void acc_rows(float (&acc)[DP / 8][4],
-                                         const float (&w)[4][4],
-                                         const bf16* x, int lane) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int k2 = 0; k2 < 2; ++k2) {
+  for (int kk = 0; kk < 4; ++kk) {
     uint32_t hi[4], lo[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float a = w[2 * k2 + i / 2][(i % 2) * 2];
-      const float b = w[2 * k2 + i / 2][(i % 2) * 2 + 1];
-      hi[i] = bf16x2(a, b);
+      const float a = w[8 * kk + 2 * i], b = w[8 * kk + 2 * i + 1];
+      hi[i] = bf16x2_bits(a, b);
       if constexpr (SPLIT) {
-        const __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&hi[i]);
-        lo[i] = bf16x2(a - __low2float(h), b - __high2float(h));
+        const __nv_bfloat162 h =
+            *reinterpret_cast<const __nv_bfloat162*>(&hi[i]);
+        lo[i] = bf16x2_bits(a - __low2float(h), b - __high2float(h));
       }
     }
-#pragma unroll
-    for (int n2 = 0; n2 < DP / 16; ++n2) {
-      uint32_t bf[4];
-      ldsm_t(bf, x + (k2 * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                     n2 * 16 + (lane / 16) * 8);
-      mma(acc[2 * n2], hi, bf[0], bf[1]);
-      mma(acc[2 * n2 + 1], hi, bf[2], bf[3]);
-      if constexpr (SPLIT) {
-        mma(acc[2 * n2], lo, bf[0], bf[1]);
-        mma(acc[2 * n2 + 1], lo, bf[2], bf[3]);
-      }
+    const uint32_t rows = x + kk * 16 * 128;
+    const uint64_t d0 = smem_desc(rows, 1024, 1024);
+    wgmma_rs(acc0, hi[0], hi[1], hi[2], hi[3], d0);
+    if constexpr (SPLIT) wgmma_rs(acc0, lo[0], lo[1], lo[2], lo[3], d0);
+    if constexpr (n2(KS) > 0) {
+      const uint64_t d1 = smem_desc(rows + G_BOX_BYTES, 1024, 1024);
+      wgmma_rs(acc1, hi[0], hi[1], hi[2], hi[3], d1);
+      if constexpr (SPLIT) wgmma_rs(acc1, lo[0], lo[1], lo[2], lo[3], d1);
     }
   }
 }
 
-template <int DP>
+// The two consumer warpgroups take turns to issue their products (named
+// barriers 1 and 2 of 256 threads: one warpgroup waits at its own, the
+// other arrives), so that one forms p and ds while the other's products
+// run; in step, both formed them at once and left the tensor cores idle
+// (4-5 % slower on an H100).  Warpgroup 1 lets 0 go first, and 0 takes
+// that extra arrival back at the end.
+__device__ __forceinline__ void turn_begin(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_end(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+__device__ __forceinline__ void turns_start(int wg) {
+  if (wg == 1) turn_end(wg);
+}
+__device__ __forceinline__ void turns_done(int wg) {
+  if (wg == 0) turn_begin(wg);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+}
+
+// rows row0 and row0 + 8 of a warpgroup's m64n(16 KS) accumulator, times
+// mul, to bf16 rows of dst below `rows`, columns below D
+template <int KS>
 __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
-                                           const float (&acc)[DP / 8][4],
+                                           const float (&acc0)[n1(KS) / 2],
+                                           const float (&acc1)[n2_regs(KS)],
                                            float mul, int row0, int rows,
-                                           int D, int lane) {
-  const int g = lane / 4, t = lane % 4;
+                                           int D, int col0) {
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= rows) continue;
+    bf16* out = dst + static_cast<long long>(row) * row_stride;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + g + 8 * h, col = n * 8 + 2 * t;
-      if (row >= rows) continue;
-      bf16* p = dst + row * row_stride + col;
-      if (col + 1 < D) {
-        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(
-            acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-      } else if (col < D) {
-        *p = __float2bfloat16_rn(acc[n][2 * h] * mul);
-      }
+    for (int j = 0; j < n1(KS) / 8; ++j) {
+      const int col = 8 * j + col0;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
+            acc0[4 * j + 2 * h] * mul, acc0[4 * j + 2 * h + 1] * mul);
+    }
+#pragma unroll
+    for (int j = 0; j < n2(KS) / 8; ++j) {
+      const int col = BOX_COLS + 8 * j + col0;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
+            acc1[4 * j + 2 * h] * mul, acc1[4 * j + 2 * h + 1] * mul);
+    }
+  }
+}
+
+__device__ __forceinline__ void init_ring(uint64_t (&bars)[1 + 2 * G_STAGES],
+                                          int full_count) {
+  mbar_init(smem_u32(&bars[0]), 1);
+  for (int st = 0; st < G_STAGES; ++st) {
+    mbar_init(smem_u32(&bars[1 + st]), full_count);
+    mbar_init(smem_u32(&bars[1 + G_STAGES + st]), 4 * G_CONSUMERS);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The resident pair: rows r0.. of (head, batch) from maps mx and my, 64 a
+// consumer warpgroup, onto barrier bar.
+template <int KS>
+__device__ __forceinline__ void load_resident(const Tiles& t,
+                                              const CUtensorMap* mx,
+                                              const CUtensorMap* my,
+                                              uint32_t bar, int r0, int head,
+                                              int batch) {
+  constexpr int boxes = KS > 4 ? 2 : 1;
+  mbar_expect_tx(bar, 2 * G_CONSUMERS * boxes * G_BOX_BYTES);
+  for (int r = 0; r < G_CONSUMERS; ++r)
+    for (int bx = 0; bx < boxes; ++bx) {
+      tma_load(t.x(r) + bx * G_BOX_BYTES, mx, bar, bx * BOX_COLS,
+               r0 + r * G_ROWS, head, batch);
+      tma_load(t.y(r) + bx * G_BOX_BYTES, my, bar, bx * BOX_COLS,
+               r0 + r * G_ROWS, head, batch);
     }
 }
 
-template <int DP>
-__host__ __device__ constexpr int mma_smem_bytes() {
-  return 2 * (M_ROWS + M_TILE) * (DP + 8) * 2 + 2 * M_ROWS * 4;
+// One streamed pair into stage st: 64 rows from r0 of maps mu and mw.
+template <int KS>
+__device__ __forceinline__ void load_stage(const Tiles& t, int st,
+                                           const CUtensorMap* mu,
+                                           const CUtensorMap* mw,
+                                           uint32_t bar, int r0, int head,
+                                           int batch) {
+  constexpr int boxes = KS > 4 ? 2 : 1;
+  mbar_expect_tx(bar, 2 * boxes * G_BOX_BYTES);
+  for (int bx = 0; bx < boxes; ++bx) {
+    tma_load(t.u(st) + bx * G_BOX_BYTES, mu, bar, bx * BOX_COLS, r0, head,
+             batch);
+    tma_load(t.w(st) + bx * G_BOX_BYTES, mw, bar, bx * BOX_COLS, r0, head,
+             batch);
+  }
 }
 
-// (b) on the tensor cores: dk and dv of 64 keys, 16 a warp, over query
-// tiles of 32; the transposed scores s^T = k q^T are computed directly, so
-// p^T and ds^T leave their accumulators as the A operands of dv += p^T dout
-// and dk += ds^T q
-template <int DP>
-__global__ void __launch_bounds__(M_THREADS)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, Strides sq,
-                          const bf16* __restrict__ k, Strides sk,
-                          const bf16* __restrict__ v, Strides sv,
-                          const bf16* __restrict__ dout, Strides sdo,
+// One pass of (b)'s consumer loop over the block's query tiles, its ring
+// slots counted from `first`: dv += p^T dout with DV and dk += ds^T q with
+// DK, s^T = k q^T recomputed in each pass, then the pass's gradients
+// stored.  The warpgroup's 64 keys start at kw; its thread holds the rows
+// key0 and key0 + 8 and the columns col0 (+ 1) + 8 j of an m64n64 tile.
+template <int KS, bool DV, bool DK>
+__device__ __forceinline__ void dkdv_pass(
+    const Tiles& t, const uint64_t* bars, const float* stats, int first,
+    const int& tiles, const int& per_head, const int& qt0, int wg, int kw,
+    int key0, int col0, int lane, int Sq, int Sk, int D, float scale,
+    float scale_log2, int causal, bf16* dk, long long sdk, bf16* dv,
+    long long sdv) {
+  float dk0[n1(KS) / 2], dk1[n2_regs(KS)], dv0[n1(KS) / 2],
+      dv1[n2_regs(KS)];
+  zero(dk0);
+  zero(dk1);
+  zero(dv0);
+  zero(dv1);
+  for (int i = 0; i < tiles; ++i) {
+    const int it = first + i, st = it % G_STAGES, fill = it / G_STAGES;
+    const int q0 = (qt0 + i % per_head) * G_ROWS;
+    mbar_wait(smem_u32(&bars[1 + st]), fill & 1);
+
+    // s^T = k q^T, dp^T = v dout^T
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    turn_begin(wg);
+    wgmma_fence();
+    ss_scores<KS>(s, t.x(wg), t.u(st));
+    if constexpr (DK) ss_scores<KS>(dp, t.y(wg), t.w(st));
+    wgmma_commit();
+    turn_end(wg);
+    wgmma_wait_all();
+    fence_regs(s);
+    if constexpr (DK) fence_regs(dp);
+
+    // p^T = 2^(s^T scale log2(e) - lse log2(e)), 0 where a query precedes a
+    // key (causal) or lies beyond Sq (only diagonal and ragged tiles are
+    // masked), and ds^T = p^T (dp^T - D), in place
+    const float* ls = stats + st * G_STATS;
+    const bool masked =
+        q0 + G_ROWS > Sq || (causal && q0 < kw + G_ROWS - 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + col0);
+      const float2 dd =
+          *reinterpret_cast<const float2*>(ls + G_ROWS + 8 * j + col0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          float p = ex2(fmaf(s[i], scale_log2, -(e ? l.y : l.x)));
+          if (masked) {
+            const int query = q0 + 8 * j + col0 + e;
+            if (query >= Sq || (causal && query < key0 + 8 * h)) p = 0.0f;
+          }
+          s[i] = p;
+          if constexpr (DK) dp[i] = p * (dp[i] - (e ? dd.y : dd.x));
+        }
+    }
+    // dv += p^T dout, dk += ds^T q
+    turn_begin(wg);
+    wgmma_fence();
+    if constexpr (DV) rs_product<KS, false>(dv0, dv1, s, t.w(st));
+    if constexpr (DK) rs_product<KS, true>(dk0, dk1, dp, t.u(st));
+    wgmma_commit();
+    turn_end(wg);
+    wgmma_wait_all();
+    if constexpr (DV) {
+      fence_regs(dv0);
+      fence_regs(dv1);
+    }
+    if constexpr (DK) {
+      fence_regs(dk0);
+      fence_regs(dk1);
+    }
+    if (lane == 0) mbar_arrive(smem_u32(&bars[1 + G_STAGES + st]));
+  }
+  if constexpr (DK)
+    store_rows<KS>(dk, sdk, dk0, dk1, scale, key0, Sk, D, col0);
+  if constexpr (DV)
+    store_rows<KS>(dv, sdv, dv0, dv1, 1.0f, key0, Sk, D, col0);
+}
+
+// (b) dk and dv of 128 keys of one (batch, KV head), 64 a consumer
+// warpgroup, over the query tiles of the group's heads that see them: one
+// pass at d <= 64; above, a pass for dv and one for dk (at d = 128 their
+// 128 float32 accumulators a thread with s^T and dp^T made ptxas
+// serialize every wgmma), the producer streaming the tiles twice.
+template <int KS>
+__global__ void __launch_bounds__(G_THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dvec,
+                            bf16* __restrict__ dk, Strides sdk,
+                            bf16* __restrict__ dv, Strides sdv, int H,
+                            int Hkv, int Sq, int Sk, int D, float scale,
+                            float scale_log2, int causal) {
+  constexpr int passes = KS > 4 ? 2 : 1;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * G_STAGES];
+  // loop bounds in shared memory, read once per tile: at d = 128 registers
+  // held across the loop would spill
+  __shared__ int tiles, per_head, qt0;
+  const uint32_t raw = smem_u32(smem_raw);
+  const Tiles t{(raw + 1023u) & ~1023u};
+  // [stage][lse in the log2 domain (64), D (64)]
+  float* stats = reinterpret_cast<float*>(smem_raw + (t.base - raw) +
+                                          G_RING_BYTES);
+  const uint32_t resident = smem_u32(&bars[0]);
+
+  // heads along x, so that the grid's first blocks are every head's
+  // longest causal loops
+  const int k0 = blockIdx.y * G_BLOCK;
+  const int bi = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int group = H / Hkv;
+  if (threadIdx.x == 0) {
+    // top-left causal: a query tile ending before k0 sees none of its keys
+    const int first = causal ? k0 / G_ROWS : 0;
+    const int n = max((Sq + G_ROWS - 1) / G_ROWS - first, 0);
+    qt0 = first;
+    per_head = n;
+    tiles = group * n;
+    // a full slot: the TMA bytes and the producer warp's 32 stat stores
+    init_ring(bars, 1 + 32);
+  }
+  __syncthreads();
+
+  // warp-uniform to the compiler, so that each role's register budget
+  // follows its setmaxnreg
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == G_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x < 128 * G_CONSUMERS + 32) {   // one producer warp
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) load_resident<KS>(t, &tk, &tv, resident, k0, hk, bi);
+      for (int it = 0; it < passes * tiles; ++it) {
+        const int st = it % G_STAGES, fill = it / G_STAGES;
+        const int i = it % tiles;
+        const int hi = hk * group + i / per_head;
+        const int q0 = (qt0 + i % per_head) * G_ROWS;
+        if (fill > 0)
+          mbar_wait(smem_u32(&bars[1 + G_STAGES + st]), (fill - 1) & 1);
+        const uint32_t full = smem_u32(&bars[1 + st]);
+        if (lane == 0) load_stage<KS>(t, st, &tq, &tdo, full, q0, hi, bi);
+        float* ls = stats + st * G_STATS;
+        const long long at = (static_cast<long long>(bi) * H + hi) * Sq + q0;
+        for (int r = lane; r < G_ROWS; r += 32) {
+          const bool in = q0 + r < Sq;
+          ls[r] = in ? lse[at + r] * LOG2E : 0.0f;
+          ls[G_ROWS + r] = in ? dvec[at + r] : 0.0f;
+        }
+        mbar_arrive(full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int kw = k0 + G_ROWS * wg;                 // the warpgroup's keys
+    const int key0 = kw + 16 * warp + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    bf16* dkb = dk + bi * sdk.b + hk * sdk.h;
+    bf16* dvb = dv + bi * sdv.b + hk * sdv.h;
+    mbar_wait(resident, 0);
+    turns_start(wg);
+    if constexpr (passes == 1) {
+      dkdv_pass<KS, true, true>(t, bars, stats, 0, tiles, per_head, qt0, wg,
+                                kw, key0, col0, lane, Sq, Sk, D, scale,
+                                scale_log2, causal, dkb, sdk.s, dvb, sdv.s);
+    } else {
+      dkdv_pass<KS, true, false>(t, bars, stats, 0, tiles, per_head, qt0,
+                                 wg, kw, key0, col0, lane, Sq, Sk, D, scale,
+                                 scale_log2, causal, dkb, sdk.s, dvb, sdv.s);
+      dkdv_pass<KS, false, true>(t, bars, stats, tiles, tiles, per_head, qt0,
+                                 wg, kw, key0, col0, lane, Sq, Sk, D, scale,
+                                 scale_log2, causal, dkb, sdk.s, dvb, sdv.s);
+    }
+    turns_done(wg);
+  }
+}
+
+// (c) dq of 128 queries of one (batch, head), 64 a consumer warpgroup, over
+// the key tiles they see
+template <int KS>
+__global__ void __launch_bounds__(G_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse,
                           const float* __restrict__ dvec,
-                          bf16* __restrict__ dk, Strides sdk,
-                          bf16* __restrict__ dv, Strides sdv, int H, int Hkv,
-                          int Sq, int Sk, int D, float scale, int causal,
-                          int vec) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [64][LD]
-  bf16* vs = ks + M_ROWS * LD;                     // [64][LD]
-  bf16* qs = vs + M_ROWS * LD;                     // [32][LD]
-  bf16* dos = qs + M_TILE * LD;                    // [32][LD]
-  float* ls = reinterpret_cast<float*>(dos + M_TILE * LD);   // [32] lse
-  float* ds = ls + M_ROWS;                                    // [32] D
+                          bf16* __restrict__ dq, Strides sdq, int H, int Hkv,
+                          int Sq, int Sk, int D, float scale,
+                          float scale_log2, int causal) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * G_STAGES];
+  __shared__ int tiles;
+  const Tiles t{(smem_u32(smem_raw) + 1023u) & ~1023u};
+  const uint32_t resident = smem_u32(&bars[0]);
+  auto full = [&](int st) { return smem_u32(&bars[1 + st]); };
+  auto empty = [&](int st) { return smem_u32(&bars[1 + G_STAGES + st]); };
 
-  const int k0 = blockIdx.x * M_ROWS;   // the longest causal loops first
-  const long long bi = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
-  const int group = H / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int kw = k0 + 16 * warp;        // the warp's first key
+  // heads along x: every head's longest causal rows first
+  const int nqb = (Sq + G_BLOCK - 1) / G_BLOCK;
+  const int q0 = (nqb - 1 - blockIdx.y) * G_BLOCK;
+  const int bi = blockIdx.x / H, hi = blockIdx.x % H, hk = hi / (H / Hkv);
+  if (threadIdx.x == 0) {
+    int n = (Sk + G_ROWS - 1) / G_ROWS;
+    if (causal) n = min(n, (min(q0 + G_BLOCK, Sq) - 1) / G_ROWS + 1);
+    tiles = n;
+    init_ring(bars, 1);
+  }
+  __syncthreads();
 
-  load_bf16<DP>(ks, k + bi * sk.b + hk * sk.h, sk.s, k0, M_ROWS, Sk, D, vec);
-  load_bf16<DP>(vs, v + bi * sv.b + hk * sv.h, sv.s, k0, M_ROWS, Sk, D, vec);
-
-  float dka[DP / 8][4], dva[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
-
-  const int qt0 = causal ? k0 / M_TILE : 0;
-  const int nqt = (Sq + M_TILE - 1) / M_TILE;
-  for (int gh = 0; gh < group; ++gh) {
-    const long long hi = hk * group + gh;
-    const bf16* qh = q + bi * sq.b + hi * sq.h;
-    const bf16* doh = dout + bi * sdo.b + hi * sdo.h;
-    const float* lh = lse + (bi * H + hi) * Sq;
-    const float* dh = dvec + (bi * H + hi) * Sq;
-    for (int qt = qt0; qt < nqt; ++qt) {
-      const int q0 = qt * M_TILE;
-      __syncthreads();               // the previous tile is no longer read
-      load_bf16<DP>(qs, qh, sq.s, q0, M_TILE, Sq, D, vec);
-      load_bf16<DP>(dos, doh, sdo.s, q0, M_TILE, Sq, D, vec);
-      if (threadIdx.x < M_TILE) {
-        const int i = q0 + threadIdx.x;
-        ls[threadIdx.x] = i < Sq ? lh[i] : 0.0f;
-        ds[threadIdx.x] = i < Sq ? dh[i] : 0.0f;
+  // warp-uniform to the compiler, so that each role's register budget
+  // follows its setmaxnreg
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == G_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * G_CONSUMERS) {   // one producer thread
+      load_resident<KS>(t, &tq, &tdo, resident, q0, hi, bi);
+      for (int kt = 0; kt < tiles; ++kt) {
+        const int st = kt % G_STAGES, fill = kt / G_STAGES;
+        if (fill > 0) mbar_wait(empty(st), (fill - 1) & 1);
+        load_stage<KS>(t, st, &tk, &tv, full(st), kt * G_ROWS, hk, bi);
       }
-      __syncthreads();
-
-      float p[4][4], dp[4][4];
-      rows_dot<DP>(p, ks + 16 * warp * LD, qs, lane);      // s^T
-      rows_dot<DP>(dp, vs + 16 * warp * LD, dos, lane);    // dp^T
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kw + g + (e / 2) * 8;
-          const int col = n * 8 + 2 * t + e % 2, query = q0 + col;
-          const bool seen =
-              query < Sq && key < Sk && !(causal && query < key);
-          p[n][e] = seen ? expf(p[n][e] * scale - ls[col]) : 0.0f;
-          dp[n][e] = p[n][e] * (dp[n][e] - ds[col]);       // ds^T
-        }
-      acc_rows<DP, false>(dva, p, dos, lane);              // dv += p^T dout
-      acc_rows<DP, true>(dka, dp, qs, lane);               // dk += ds^T q
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int qw = q0 + G_ROWS * wg;                 // the warpgroup's rows
+    const int row0 = qw + 16 * warp + lane / 4;      // and row0 + 8
+    const int col0 = 2 * (lane % 4);
+    // the rows' lse in the log2 domain and D
+    float l2[2], dr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const long long at = (static_cast<long long>(bi) * H + hi) * Sq + row;
+      l2[h] = row < Sq ? lse[at] * LOG2E : 0.0f;
+      dr[h] = row < Sq ? dvec[at] : 0.0f;
+    }
+    float dq0[n1(KS) / 2], dq1[n2_regs(KS)];
+    zero(dq0);
+    zero(dq1);
+
+    mbar_wait(resident, 0);
+    turns_start(wg);
+    for (int kt = 0; kt < tiles; ++kt) {
+      const int st = kt % G_STAGES, fill = kt / G_STAGES;
+      const int k0 = kt * G_ROWS;
+      mbar_wait(full(st), fill & 1);
+
+      // s = q k^T, dp = dout v^T
+      float s[32], dp[32];
+      zero(s);
+      zero(dp);
+      turn_begin(wg);
+      wgmma_fence();
+      ss_scores<KS>(s, t.x(wg), t.u(st));
+      ss_scores<KS>(dp, t.y(wg), t.w(st));
+      wgmma_commit();
+      turn_end(wg);
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // ds = p (dp - D), p = 0 where a key follows the query (causal) or
+      // lies beyond Sk: only diagonal and ragged tiles are masked
+      const bool masked =
+          k0 + G_ROWS > Sk || (causal && k0 + G_ROWS - 1 > qw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p = ex2(fmaf(s[i], scale_log2, -l2[h]));
+            if (masked) {
+              const int key = k0 + 8 * j + col0 + e;
+              if (key >= Sk || (causal && row0 + 8 * h < key)) p = 0.0f;
+            }
+            dp[i] = p * (dp[i] - dr[h]);
+          }
+      // dq += ds k
+      turn_begin(wg);
+      wgmma_fence();
+      rs_product<KS, true>(dq0, dq1, dp, t.u(st));
+      wgmma_commit();
+      turn_end(wg);
+      wgmma_wait_all();
+      fence_regs(dq0);
+      fence_regs(dq1);
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    turns_done(wg);
+    store_rows<KS>(dq + bi * sdq.b + hi * sdq.h, sdq.s, dq0, dq1, scale,
+                   row0, Sq, D, col0);
   }
-  store_rows<DP>(dk + bi * sdk.b + hk * sdk.h, sdk.s, dka, scale, kw, Sk, D,
-                 lane);
-  store_rows<DP>(dv + bi * sdv.b + hk * sdv.h, sdv.s, dva, 1.0f, kw, Sk, D,
-                 lane);
-}
-
-// (c) on the tensor cores: dq of 64 queries, 16 a warp, over key tiles of 32
-template <int DP>
-__global__ void __launch_bounds__(M_THREADS)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, Strides sq,
-                        const bf16* __restrict__ k, Strides sk,
-                        const bf16* __restrict__ v, Strides sv,
-                        const bf16* __restrict__ dout, Strides sdo,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dvec,
-                        bf16* __restrict__ dq, Strides sdq, int H, int Hkv,
-                        int Sq, int Sk, int D, float scale, int causal,
-                        int vec) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [64][LD]
-  bf16* dos = qs + M_ROWS * LD;                    // [64][LD]
-  bf16* ks = dos + M_ROWS * LD;                    // [32][LD]
-  bf16* vs = ks + M_TILE * LD;                     // [32][LD]
-  float* ls = reinterpret_cast<float*>(vs + M_TILE * LD);    // [64] lse
-  float* ds = ls + M_ROWS;                                    // [64] D
-
-  const int nqt = (Sq + M_ROWS - 1) / M_ROWS;
-  const int q0 = (nqt - 1 - blockIdx.x) * M_ROWS;   // longest rows first
-  const long long bi = blockIdx.y / H, hi = blockIdx.y % H;
-  const long long hk = hi / (H / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int qw = q0 + 16 * warp;        // the warp's first query
-
-  load_bf16<DP>(qs, q + bi * sq.b + hi * sq.h, sq.s, q0, M_ROWS, Sq, D, vec);
-  load_bf16<DP>(dos, dout + bi * sdo.b + hi * sdo.h, sdo.s, q0, M_ROWS, Sq,
-                D, vec);
-  if (threadIdx.x < M_ROWS) {
-    const int i = q0 + threadIdx.x;
-    const long long at = (bi * H + hi) * Sq + i;
-    ls[threadIdx.x] = i < Sq ? lse[at] : 0.0f;
-    ds[threadIdx.x] = i < Sq ? dvec[at] : 0.0f;
-  }
-  const bf16* kh = k + bi * sk.b + hk * sk.h;
-  const bf16* vh = v + bi * sv.b + hk * sv.h;
-  int nkt = (Sk + M_TILE - 1) / M_TILE;
-  if (causal) nkt = min(nkt, (min(q0 + M_ROWS, Sq) - 1) / M_TILE + 1);
-
-  float dqa[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.0f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * M_TILE;
-    __syncthreads();                 // the previous tile is no longer read
-    load_bf16<DP>(ks, kh, sk.s, k0, M_TILE, Sk, D, vec);
-    load_bf16<DP>(vs, vh, sv.s, k0, M_TILE, Sk, D, vec);
-    __syncthreads();
-
-    float p[4][4], dp[4][4];
-    rows_dot<DP>(p, qs + 16 * warp * LD, ks, lane);        // s
-    rows_dot<DP>(dp, dos + 16 * warp * LD, vs, lane);      // dp
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = 16 * warp + g + (e / 2) * 8, query = q0 + row;
-        const int key = k0 + n * 8 + 2 * t + e % 2;
-        const bool seen = query < Sq && key < Sk && !(causal && query < key);
-        const float pv = seen ? expf(p[n][e] * scale - ls[row]) : 0.0f;
-        p[n][e] = pv * (dp[n][e] - ds[row]);               // ds
-      }
-    acc_rows<DP, true>(dqa, p, ks, lane);                  // dq += ds k
-  }
-  store_rows<DP>(dq + bi * sdq.b + hi * sdq.h, sdq.s, dqa, scale, qw, Sq, D,
-                 lane);
 }
 
 struct Operands {
@@ -743,63 +946,58 @@ int launch_f32(const Operands& a, const float* lse, float* dvec, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int launch_mma(const Operands& a, const float* lse, const float* dvec, int B,
-               int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
-               int vec, cudaStream_t stream) {
-  constexpr int bytes = mma_smem_bytes<DP>();
+
+template <int KS>
+int launch_wgmma(const Operands& a, const CUtensorMap (&maps)[4],
+                 const float* lse, const float* dvec, int B, int H, int Hkv,
+                 int Sq, int Sk, int D, float scale, int causal,
+                 cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_dkdv_wgmma_kernel<KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DP>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<KS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+                               G_SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  flash_bwd_dkdv_mma_kernel<DP>
-      <<<dim3((Sk + M_ROWS - 1) / M_ROWS, B * Hkv), M_THREADS, bytes,
-         stream>>>(q, a.sq, k, a.sk, v, a.sv, dout, a.sdo, lse, dvec,
-                   static_cast<bf16*>(a.dk), a.sdk, static_cast<bf16*>(a.dv),
-                   a.sdv, H, Hkv, Sq, Sk, D, scale, causal, vec);
+  const float scale_log2 = scale * LOG2E;
+  flash_bwd_dkdv_wgmma_kernel<KS>
+      <<<dim3(B * Hkv, (Sk + G_BLOCK - 1) / G_BLOCK), G_THREADS,
+         G_SMEM_BYTES, stream>>>(
+          maps[0], maps[1], maps[2], maps[3], lse, dvec,
+          static_cast<bf16*>(a.dk), a.sdk, static_cast<bf16*>(a.dv), a.sdv,
+          H, Hkv, Sq, Sk, D, scale, scale_log2, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_mma_kernel<DP>
-      <<<dim3((Sq + M_ROWS - 1) / M_ROWS, B * H), M_THREADS, bytes,
-         stream>>>(q, a.sq, k, a.sk, v, a.sv, dout, a.sdo, lse, dvec,
+  flash_bwd_dq_wgmma_kernel<KS>
+      <<<dim3(B * H, (Sq + G_BLOCK - 1) / G_BLOCK), G_THREADS, G_SMEM_BYTES,
+         stream>>>(maps[0], maps[1], maps[2], maps[3], lse, dvec,
                    static_cast<bf16*>(a.dq), a.sdq, H, Hkv, Sq, Sk, D, scale,
-                   causal, vec);
+                   scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 int launch_bf16(const Operands& a, const float* lse, float* dvec, int B,
                 int H, int Hkv, int Sq, int Sk, int D, float scale,
                 int causal, cudaStream_t stream) {
+  // what TMA takes: 16-byte aligned bases and byte strides, d % 8 == 0
+  // (ops.tma_layout_error); 64-row boxes over q, k, v and dout
+  CUtensorMap maps[4];
+  if (D % 8 != 0 ||
+      !encode_map(&maps[0], a.q, a.sq, D, Sq, H, B, G_ROWS) ||
+      !encode_map(&maps[1], a.k, a.sk, D, Sk, Hkv, B, G_ROWS) ||
+      !encode_map(&maps[2], a.v, a.sv, D, Sk, Hkv, B, G_ROWS) ||
+      !encode_map(&maps[3], a.dout, a.sdo, D, Sq, H, B, G_ROWS))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int rc = launch_dot<bf16>(a, dvec, B, H, Sq, D, stream);
   if (rc != 0) return rc;
-  // 16-byte tile loads where every operand row allows them
-  int vec = D % 8 == 0;
-  const void* bases[4] = {a.q, a.k, a.v, a.dout};
-  const Strides strides[4] = {a.sq, a.sk, a.sv, a.sdo};
-  for (int i = 0; i < 4; ++i)
-    vec = vec && aligned16(bases[i]) && strides[i].b % 8 == 0 &&
-          strides[i].h % 8 == 0 && strides[i].s % 8 == 0;
-  // the head dimension padded to 16 is a template argument, so the
-  // accumulators are register arrays of static size
-  static int (*const by_width[8])(const Operands&, const float*,
-                                   const float*, int, int, int, int, int,
-                                   int, float, int, int, cudaStream_t) = {
-      launch_mma<16>, launch_mma<32>, launch_mma<48>, launch_mma<64>,
-      launch_mma<80>, launch_mma<96>, launch_mma<112>, launch_mma<128>};
-  return by_width[(D + 15) / 16 - 1](a, lse, dvec, B, H, Hkv, Sq, Sk, D,
-                                     scale, causal, vec, stream);
+  static int (*const by_width[8])(const Operands&, const CUtensorMap (&)[4],
+                                   const float*, const float*, int, int, int,
+                                   int, int, int, float, int, cudaStream_t) = {
+      launch_wgmma<1>, launch_wgmma<2>, launch_wgmma<3>, launch_wgmma<4>,
+      launch_wgmma<5>, launch_wgmma<6>, launch_wgmma<7>, launch_wgmma<8>};
+  return by_width[(D + 15) / 16 - 1](a, maps, lse, dvec, B, H, Hkv, Sq, Sk,
+                                     D, scale, causal, stream);
 }
 
 }  // namespace

@@ -6,7 +6,9 @@ CUDA tensors and runs the plain version (``ref.py``) for CPU tensors;
 ``"cuda"`` and ``"reference"`` force one side and raise for a tensor on the
 other device: nothing falls back.  bfloat16 runs the tensor-core kernel,
 which loads q, k and v by TMA; a bf16 call whose layout TMA cannot read
-(``tma_layout_error``) raises.
+(``tma_layout_error``) raises.  The bf16 backward loads q, k, v and dout
+by TMA too and raises on q, k, v or out likewise; dout, autograd's tensor
+rather than the model's, is copied contiguous where TMA cannot read it.
 
 Under autograd (grad enabled and q, k or v requiring a gradient) the call
 goes through :class:`FlashAttention`, the port of the JAX package's
@@ -86,6 +88,15 @@ def _check_operands(tensors, d: int) -> None:
                          f"got {d}")
 
 
+def _check_tma(tensors, who: str) -> None:
+    """Raise unless TMA can read every bf16 operand named."""
+    for label, t in tensors:
+        why = tma_layout_error(t.shape, t.stride(), t.data_ptr())
+        if why is not None:
+            raise ValueError(f"the bf16 flash {who} takes {label} only "
+                             f"in a layout TMA can read: {why}")
+
+
 def _strided(tensors):
     args = []
     for t in tensors:
@@ -102,11 +113,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, with_lse: bool = False):
     hkv, sk = k.shape[1], k.shape[2]
     _check_operands((("q", q), ("k", k), ("v", v)), d)
     if q.dtype == torch.bfloat16:
-        for label, t in (("q", q), ("k", k), ("v", v)):
-            why = tma_layout_error(t.shape, t.stride(), t.data_ptr())
-            if why is not None:
-                raise ValueError(f"the bf16 flash kernel loads {label} by "
-                                 f"TMA, which cannot read it: {why}")
+        _check_tma((("q", q), ("k", k), ("v", v)), "kernel")
     # o in [B, S, H, d] memory order: the attention layer reads it that way
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
@@ -138,10 +145,16 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
 
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if do.shape[-1] > 1 and do.stride(-1) != 1:
+    if ((do.shape[-1] > 1 and do.stride(-1) != 1)
+            or (do.dtype == torch.bfloat16 and tma_layout_error(
+                do.shape, do.stride(), do.data_ptr()) is not None)):
+        # dout is autograd's tensor, not the model's: an explicit copy
         do = do.contiguous()
     _check_operands((("q", q), ("k", k), ("v", v), ("out", o),
                      ("dout", do)), d)
+    if q.dtype == torch.bfloat16:
+        _check_tma((("q", q), ("k", k), ("v", v), ("out", o)),
+                   "backward")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous float32 [B, H, Sq] tensor")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))

@@ -114,7 +114,7 @@ def _prompt_positions(x):
 
 
 def forward_train(cfg, params, batch) -> torch.Tensor:
-    x = params["embed"]["tokens"][batch["tokens"]]
+    x = mamba2.embed_tokens(params, batch["tokens"])
     x = _forward_cached(cfg, params, x, _prompt_positions(x))
     x = rms_norm(x, params["ln_f"])
     return x @ params["embed"]["tokens"].T
@@ -133,7 +133,7 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> HybridCache:
 
 
 def forward_prefill(cfg, params, batch, cache: HybridCache):
-    x = params["embed"]["tokens"][batch["tokens"]]
+    x = mamba2.embed_tokens(params, batch["tokens"])
     x = _forward_cached(cfg, params, x, _prompt_positions(x), cache=cache)
     x = rms_norm(x, params["ln_f"])
     logits = x[:, -1:, :] @ params["embed"]["tokens"].T
@@ -143,7 +143,7 @@ def forward_prefill(cfg, params, batch, cache: HybridCache):
 def forward_decode(cfg, params, token, cache: HybridCache, pos):
     """One decode step. token [B] int, pos an int or per-slot [B] int
     tensor.  Returns (logits [B, 1, V], cache)."""
-    x = params["embed"]["tokens"][token][:, None, :]
+    x = mamba2.embed_tokens(params, token)[:, None, :]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos[:, None].to(torch.int32)
     else:

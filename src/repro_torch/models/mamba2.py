@@ -205,8 +205,16 @@ def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
     return x
 
 
+def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings of ``tokens`` (any shape)."""
+    # F.embedding's backward sums each row's gradient in a fixed order
+    # (indexing's accumulates with atomics on the CPU), so a resumed
+    # training run equals an uninterrupted one bit for bit
+    return F.embedding(tokens.long(), params["embed"]["tokens"])
+
+
 def forward_train(cfg, params, batch) -> torch.Tensor:
-    x = params["embed"]["tokens"][batch["tokens"]]
+    x = embed_tokens(params, batch["tokens"])
     x = run_blocks(cfg, params["blocks"], x, range(cfg.layers))
     x = rms_norm(x, params["ln_f"])
     return x @ params["embed"]["tokens"].T
@@ -226,7 +234,7 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> SSMCache:
 
 def forward_prefill(cfg, params, batch, cache: SSMCache):
     """Prefill is a full forward that also extracts terminal states."""
-    x = params["embed"]["tokens"][batch["tokens"]]
+    x = embed_tokens(params, batch["tokens"])
     x = run_blocks(cfg, params["blocks"], x, range(cfg.layers), cache=cache)
     x = rms_norm(x, params["ln_f"])
     logits = x[:, -1:, :] @ params["embed"]["tokens"].T
@@ -236,7 +244,7 @@ def forward_prefill(cfg, params, batch, cache: SSMCache):
 def forward_decode(cfg, params, token, cache: SSMCache, pos):
     """One decode step; ``pos`` is unused (the state carries the past)."""
     del pos
-    x = params["embed"]["tokens"][token][:, None, :]
+    x = embed_tokens(params, token)[:, None, :]
     x = run_blocks(cfg, params["blocks"], x, range(cfg.layers), cache=cache,
                    decode=True)
     x = rms_norm(x, params["ln_f"])

@@ -54,7 +54,32 @@ def test_single_rounding_variant_applies_to_backward_source():
     src = (Path(build.CSRC) / "flash_attention_bwd.cu").read_text()
     out = tool.single_rounding(src)
     assert tool.SPLIT not in out
-    assert out.count("acc_rows<DP, false>") == src.count(
-        "acc_rows<DP, false>") + 2
+    assert out.count(tool.ONCE) == src.count(tool.ONCE) + 2
     with pytest.raises(ValueError, match="two"):
         tool.single_rounding(out)
+
+
+def test_profiler_names_follow_the_backward_kernels():
+    """chip_smoke.py reads the flash backward's device time by exact kernel
+    name: the names it matches must be the ``__global__`` functions of
+    flash_attention_bwd.cu, so that a renamed kernel cannot drop out of
+    the trace's sum unnoticed, and a call of either type launches
+    FLASH_BWD_KERNELS_PER_CALL of them (D, then dk / dv, then dq)."""
+    import importlib.util
+    import re
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = (Path(build.CSRC) / "flash_attention_bwd.cu").read_text()
+    names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        src)
+    assert len(names) == len(set(names))
+    assert set(names) == set(smoke.FLASH_BWD_KERNELS)
+    bf16 = [n for n in names if n.endswith("_wgmma_kernel")]
+    shared = [n for n in names if "dot" in n]
+    f32 = set(names) - set(bf16) - set(shared)
+    assert len(shared) + len(bf16) == smoke.FLASH_BWD_KERNELS_PER_CALL
+    assert len(shared) + len(f32) == smoke.FLASH_BWD_KERNELS_PER_CALL

@@ -699,6 +699,31 @@ def test_flash_backward_kernel_matches_plain_version(card, b, h, hkv, sq, sk,
 
 
 @pytest.mark.cuda
+def test_flash_backward_operand_layouts(card):
+    """The bf16 backward loads q, k, v and dout by TMA: a dout that TMA
+    cannot read (one element into its storage) is copied and gives the
+    gradients of the contiguous dout bit for bit; q, k, v or out in such
+    a layout is refused."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v = _bshd_views(1, 4, 2, 96, 96, 64, torch.bfloat16, 3, card)
+    o, lse = fa._launch(q, k, v, True, 0.125, with_lse=True)
+    wide = torch.randn((1, 96, 4, 72), device=card, dtype=torch.bfloat16)
+    do = wide[..., 1:65].transpose(1, 2)
+    assert fa.tma_layout_error(do.shape, do.stride(), do.data_ptr())
+    got = fa._launch_bwd(q, k, v, o, lse, do, True, 0.125)
+    want = fa._launch_bwd(q, k, v, o, lse, do.contiguous(), True, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    bad = wide[..., 1:65].transpose(1, 2)
+    for i in range(4):
+        args = [q, k, v, o]
+        args[i] = bad if i != 1 and i != 2 else bad[:, :2]
+        with pytest.raises(ValueError, match="TMA"):
+            fa._launch_bwd(*args, lse, do, True, 0.125)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_gradient_flows_through_the_kernels(card, dtype):
     """Under autograd the flash call records its backward: q.grad, k.grad

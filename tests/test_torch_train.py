@@ -43,7 +43,7 @@ from repro.train import cosine_schedule as jax_cosine
 from repro.train import global_norm as jax_global_norm
 from repro.train import init_train_state as jax_init_state
 from repro_torch import train
-from repro_torch.convert import train_state_from_jax
+from repro_torch.convert import params_from_jax, train_state_from_jax
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import build_model
 from repro_torch.quant import bitnet as port_bitnet
@@ -407,3 +407,42 @@ def test_best_grouping_as_jax(layers):
     from repro_torch.models.common import best_grouping
 
     assert best_grouping(layers) == jax_grouping(layers)
+
+
+# --------------------------------------------------------------------------- #
+# the SSM families' embedding gradient
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_ssm_embedding_gradient_is_bit_equal_across_runs(arch):
+    """Mamba-2 and Zamba2 gather their token embeddings with F.embedding,
+    whose backward sums each row's gradient in a fixed order (indexing's
+    accumulates with atomics on the CPU): two backward passes of the
+    reduced model's next-token loss over 3072 tokens give bit-equal
+    embedding gradients, and its logits match the JAX package's (float32,
+    no quantization, 1e-4 as test_torch_hybrid.py's whole-model runs)."""
+    jcfg = reduced(get_config(arch)).replace(dtype="float32",
+                                             quantization="none")
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch)).replace(
+        dtype="float32", quantization="none")
+    japi, tapi = jax_build(jcfg), build_model(tcfg, device="cpu")
+    jp = japi.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(11).integers(
+        1, tcfg.vocab, size=(1, 3072)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks)}
+    targets = batch["tokens"][:, 1:].reshape(-1).long()
+
+    def embed_grad():
+        table = tp["embed"]["tokens"].detach().clone().requires_grad_()
+        logits = tapi.train_logits(dict(tp, embed={"tokens": table}), batch)
+        loss = torch.nn.functional.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]), targets)
+        return torch.autograd.grad(loss, table)[0], logits.detach()
+
+    (first, logits), (second, _) = embed_grad(), embed_grad()
+    assert first.abs().sum() > 0
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    want = japi.train_logits(jp, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)

@@ -27,15 +27,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 OUT = os.path.join(ROOT, "build", "ablations")
-# the two products whose ds operand is split (dk += ds^T q, dq += ds k)
-SPLIT = "acc_rows<DP, true>"
+# the two products whose ds operand is split (dk += ds^T q, dq += ds k),
+# and the same products with ds rounded once
+SPLIT = "rs_product<KS, true>"
+ONCE = "rs_product<KS, false>"
 
 
 def single_rounding(src: str) -> str:
     """The kernel source with ds rounded once to bf16."""
     if src.count(SPLIT) != 2:
         raise ValueError(f"expected two '{SPLIT}' in the kernel source")
-    return src.replace(SPLIT, "acc_rows<DP, false>")
+    return src.replace(SPLIT, ONCE)
 
 
 def build_variant(src: str):
@@ -46,7 +48,8 @@ def build_variant(src: str):
     lib = os.path.join(OUT, "libflash_attention_bwd_single.so")
     with open(cu, "w") as f:
         f.write(single_rounding(src))
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                           str(build.CSRC), "-o", lib, cu],
                           capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
