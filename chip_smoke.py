@@ -29,6 +29,14 @@ Phases, each printing one JSON line:
 5. window  — one decode step (m=1, context 16) at window granularity:
              outputs and tallies must equal kernel granularity, which must
              launch the bitlinear kernel once per integer stage.
+5a. sharded — the same decode step and a 4-token prompt's prefill step
+             through LegionServeBackend(dlegion(8), window granularity,
+             executor=ShardedExecutor()): outputs bit for bit and tallies
+             exactly equal to the in-process window backend's, one device
+             used, exactly one bitlinear launch at bits 8 per stage run
+             per shard; then 2 prompts x 8 tokens through one ServeEngine
+             priced by a sharded and an in-process window backend at once,
+             their tallies equal.  Seconds per step of both.
 5b. serve_load — the same full BitNet-1.58B params served in-flight
              (64-token prefill chunks merged with the decode batch), paged
              (16 pages of 16 tokens: one max_seq=256 window, so requests
@@ -145,6 +153,20 @@ Phases, each printing one JSON line:
              equal bit for bit.  Times the kernels, their device time, the
              plain backward and SDPA's backward (forward + backward less
              the forward; a yardstick only).
+10c. flash_offset — the flash kernels with a query offset: the
+             BitNet-1.58B train shape (16 / 16 heads x d 128, S 4096,
+             bf16, causal), a GQA 32 / 8 row and a d 64 row (24 / 8), each
+             cut into 4 query shards of 1024 at offsets 0, 1024, 2048,
+             3072 against the whole K / V: each shard's output, lse, dq,
+             dk and dv against the plain versions at its offset (phase
+             10's and 10b's tolerances, with the c x rms atol); the joined
+             shards' output, lse and dq bit-equal to the whole-sequence
+             kernels' (1024 is a multiple of every query tile), dk and dv
+             summed over the shards within the bf16 tolerance and within
+             the shards' own roundings; exact launch counts.  Times the
+             4 shard calls, the whole call, the plain versions and SDPA
+             with each shard's boolean offset mask (a yardstick only; the
+             backend SDPA picked is printed).
 17. train_model — reduced BitNet (float32, no quantization, 3072-token
              sequences, so every layer's attention takes the flash path and
              its backward the kernels) on the card against the CPU from the
@@ -164,6 +186,23 @@ Phases, each printing one JSON line:
              by remat, per step) and 128 backward calls; per-step seconds,
              tokens/s, peak memory, and one more step traced by
              torch.profiler (device idle share, top device kernels).
+
+19. dist    — a one-rank NCCL group on the card (NCCL refuses two ranks
+             on one device; the multi-rank paths are held to the JAX
+             package on the CPU in gloo worlds): compressed_psum_pod on one
+             layer's BitNet-1.58B gradient leaves equal bit for bit to the
+             CPU's one-rank gloo result; gpipe with one stage equal to the
+             sequential run; BitNet-1.58B's train-shape attention through
+             _sdpa under make_rules(mesh(model=1), train_4k) goes through
+             _context_parallel_flash and equals the plain flash path,
+             values and gradients bit for bit.
+20. train_compressed — full-width BitNet-1.58B through
+             build_compressed_train_step in that group (int8 gradient
+             exchange with error feedback) for 4 steps at 1 x 4096, lr
+             TRAIN_LR: finite losses, the last below the first, ef non-zero
+             after step 1, 256 + 128 flash launches, peak memory; then
+             reduced BitNet (float32) through the compressed step on the
+             card against the CPU, losses within rel 1e-5.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -683,6 +722,133 @@ def phase_window(cfg, params, kernel_backend):
           "launches_per_decode_step": per_step, "integer_stages": int_stages,
           "step_run_seconds": seconds, "tallies_equal": True,
           "outputs_equal": True, "stages": len(outputs["kernel"])})
+
+
+def _run_step(backend, m, contexts):
+    """(outputs, seconds, bitlinear launches by bits) of one run of the
+    step program of ``m`` rows and ``contexts`` on ``backend``'s Machine,
+    and the program."""
+    import torch
+
+    from repro_torch.kernels.bitlinear import ops
+
+    prog = backend.step_program(m, contexts)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = backend.machine.run(prog, validate=False).outputs
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(ops.LAUNCHES), prog
+
+
+def phase_sharded(cfg, params):
+    """BitNet-1.58B's step programs through LegionServeBackend(dlegion(8),
+    window granularity, executor=ShardedExecutor()): a decode step (m = 1,
+    context 16) and the prefill step of a 4-token prompt (m = 4, context
+    4), outputs bit for bit and tallies exactly equal to the in-process
+    window backend's, one device used, exactly one bitlinear launch at
+    bits 8 per stage run per shard; then 2 prompts (4 and 6 tokens) x 8
+    new tokens served by one ServeEngine priced by both backends at once,
+    their tallies equal.  The host's walk of the window loop takes ~0.5 s
+    a prompt token at window granularity (a 16-token prefill step took
+    7.6 s in-process, 7.4 s sharded: PERF.md §6), so the prompts are
+    short."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dlegion
+    from repro_torch.kernels.bitlinear import ops
+    from repro_torch.legion import ShardedExecutor
+    from repro_torch.models import build_model
+    from repro_torch.serve import LegionServeBackend, ServeEngine
+
+    ex = ShardedExecutor()
+    inproc = LegionServeBackend(dlegion(8), cfg, params, granularity="window")
+    sharded = LegionServeBackend(dlegion(8), cfg, params, granularity="window",
+                                 executor=ex)
+    if sharded.machine.backend.name != "sharded":
+        raise AssertionError(f"backend {sharded.machine.backend.name}")
+    steps = {}
+    sharded_launches = 0
+    for label, m, contexts in (("decode", 1, (16,)), ("prefill", 4, (4,))):
+        want, want_s, _, prog = _run_step(inproc, m, contexts)
+        ex.devices_used = 0
+        got, got_s, launches, _ = _run_step(sharded, m, contexts)
+        shards = ex.devices_used
+        same = want.keys() == got.keys() and all(
+            np.array_equal(want[k], got[k]) for k in want)
+        tally_in = dataclasses.asdict(inproc.step_tally(m, contexts))
+        tally_sh = dataclasses.asdict(sharded.step_tally(m, contexts))
+        if not same or tally_in != tally_sh:
+            raise AssertionError(f"sharded {label}: outputs equal {same}, "
+                                 f"tallies equal {tally_in == tally_sh}")
+        if shards != 1 or launches != {2: 0, 4: 0, 8: len(prog) * shards}:
+            raise AssertionError(f"sharded {label}: {shards} shards, "
+                                 f"launches {launches} for {len(prog)} "
+                                 "stages")
+        sharded_launches += launches[8]
+        steps[label] = {"m": m, "contexts": list(contexts),
+                        "stages": len(prog), "devices_used": shards,
+                        "launches_by_bits": launches,
+                        "in_process_window_seconds": want_s,
+                        "sharded_seconds": got_s}
+
+    # serving: one engine, its steps priced by both backends
+    api = build_model(cfg)
+    eng = ServeEngine(api, params, max_slots=4, max_seq=256)
+    by_inproc = LegionServeBackend(dlegion(8), cfg, params,
+                                   granularity="window").attach(eng)
+    by_sharded = LegionServeBackend(dlegion(8), cfg, params,
+                                    granularity="window",
+                                    executor=ex).attach(eng)
+    # the sharded backend's own launches, apart from the in-process one's
+    serve_launches = {b: 0 for b in ops.BITS}
+    seconds = {"in_process": 0.0, "sharded": 0.0}
+    observers = list(zip(("in_process", "sharded"), eng.step_observers[-2:]))
+
+    def observed(name, fn):
+        def call(event):
+            before = dict(ops.LAUNCHES)
+            t = time.perf_counter()
+            fn(event)
+            seconds[name] += time.perf_counter() - t
+            if name == "sharded":
+                for b in ops.BITS:
+                    serve_launches[b] += ops.LAUNCHES[b] - before[b]
+        return call
+    eng.step_observers[-2:] = [observed(n, fn) for n, fn in observers]
+    rng = np.random.default_rng(3)
+    reqs = [eng.submit(rng.integers(1, cfg.vocab, size=n), max_new_tokens=8)
+            for n in (4, 6)]
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != 2 or not all(len(r.output) == 8 for r in reqs):
+        raise AssertionError(f"sharded serve: {len(done)} of 2 finished")
+    summary = by_sharded.summary()
+    per_req = {u: dataclasses.asdict(t)
+               for u, t in by_sharded.per_request.items()}
+    if summary != by_inproc.summary() or per_req != {
+            u: dataclasses.asdict(t)
+            for u, t in by_inproc.per_request.items()}:
+        raise AssertionError("sharded serve: tallies differ from the "
+                             "in-process window backend's")
+    if serve_launches[2] or serve_launches[4] or not serve_launches[8]:
+        raise AssertionError(f"sharded serve launches {serve_launches}")
+    sharded_launches += serve_launches[8]
+    emit({"phase": "sharded", "model": cfg.name, "accelerator": "dlegion(8)",
+          "granularity": "window", "devices_used": ex.devices_used,
+          "steps": steps, "outputs_equal": True, "tallies_equal": True,
+          "serve": {"requests": 2, "new_tokens": 8, "wall_seconds": wall,
+                    "backend_seconds": seconds,
+                    "prefill_steps": summary["prefill_steps"],
+                    "decode_steps": summary["decode_steps"],
+                    "cycles": summary["cycles"],
+                    "bitlinear_launches_by_bits": serve_launches,
+                    "tallies_equal": True},
+          "bitlinear_launches": sharded_launches})
+    return sharded_launches
 
 
 def paged_run(cfg, params, trace_seed: int, device=None):
@@ -1275,12 +1441,26 @@ def phase_ssd():
     return rows
 
 
-def flash_bound(b, h, hkv, sq, sk, d, causal, elt):
-    """(bound ms, "bytes" | "operations"): q, k, v and o over 3.35 TB/s
-    against the two products over the unmasked (query, key) pairs at the
-    type's peak (bf16 tensor cores, float32 CUDA cores)."""
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    nbytes = float(elt) * d * (2 * b * h * sq + 2 * b * hkv * sk)
+def _pairs(sq, sk, causal, q_offset=0):
+    """The (query, key) pairs a causal call sees, query i at q_offset + i."""
+    return (sum(min(q_offset + i + 1, sk) for i in range(sq)) if causal
+            else sq * sk)
+
+
+def _keys_read(sq, sk, causal, q_offset=0):
+    """The keys a call must read: a causal call whose last query sits at
+    q_offset + sq - 1 reaches only the first min(sk, q_offset + sq)."""
+    return min(sk, q_offset + sq) if causal else sk
+
+
+def flash_bound(b, h, hkv, sq, sk, d, causal, elt, q_offset=0):
+    """(bound ms, "bytes" | "operations"): q, the keys and values the
+    call reaches, and o over 3.35 TB/s against the two products over the
+    unmasked (query, key) pairs at the type's peak (bf16 tensor cores,
+    float32 CUDA cores)."""
+    pairs = _pairs(sq, sk, causal, q_offset)
+    reach = _keys_read(sq, sk, causal, q_offset)
+    nbytes = float(elt) * d * (2 * b * h * sq + 2 * b * hkv * reach)
     ops = 4.0 * b * h * pairs * d
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) * 1e3
@@ -1925,13 +2105,15 @@ FLASH_BWD_SHAPES = (
     ("zamba2-7b", 32, 32, 4096, 112, True, "bfloat16", "normal"))
 
 
-def flash_bwd_bound(b, h, hkv, sq, sk, d, causal, elt):
-    """(bound ms, "bytes" | "operations") of the attention backward: q, k,
-    v, out, dout and the lse read once, dq, dk and dv written once, over
-    3.35 TB/s, against its five products (s = q k^T, dv, dp, dq, dk) over
-    the unmasked (query, key) pairs at the type's peak."""
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    nbytes = (float(elt) * d * (4 * b * h * sq + 4 * b * hkv * sk)
+def flash_bwd_bound(b, h, hkv, sq, sk, d, causal, elt, q_offset=0):
+    """(bound ms, "bytes" | "operations") of the attention backward: q,
+    out, dout, the lse and the keys and values the call reaches read once,
+    dq, dk and dv (every key's) written once, over 3.35 TB/s, against its
+    five products (s = q k^T, dv, dp, dq, dk) over the unmasked (query,
+    key) pairs at the type's peak."""
+    pairs = _pairs(sq, sk, causal, q_offset)
+    reach = _keys_read(sq, sk, causal, q_offset)
+    nbytes = (float(elt) * d * (4 * b * h * sq + 2 * b * hkv * (reach + sk))
               + 4.0 * b * h * sq)
     ops = 10.0 * b * h * pairs * d
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2107,6 +2289,231 @@ def phase_flash_bwd():
     for r in rows:
         emit(dict(phase="flash_bwd", **r))
     return rows
+
+
+# (label, H, Hkv, d): the BitNet-1.58B train shape, a GQA row and a d 64
+# row (granite-moe-3b-a800m's heads), each causal, bf16, S = 4096 cut into
+# FLASH_OFFSET_SHARDS query shards at offsets 0, 1024, 2048, 3072
+FLASH_OFFSET_SHAPES = (("bitnet-1.58b train", 16, 16, 128),
+                       ("gqa", 32, 8, 128),
+                       ("granite-moe-3b-a800m d 64", 24, 8, 64))
+FLASH_OFFSET_SEQ = 4096
+FLASH_OFFSET_SHARDS = 4
+
+
+def _within(got, want, rtol, atol_rms):
+    """(max abs error, atol in units of rms(want) that rtol leaves to
+    cover, passes): ``got`` against ``want`` at rtol with an atol of
+    atol_rms x rms(want)."""
+    err = (got - want).abs()
+    need = float((err - rtol * want.abs()).clamp_min(0).max()
+                 / want.square().mean().sqrt())
+    return float(err.max()), need, need <= atol_rms
+
+
+def phase_flash_offset():
+    """The flash kernels with a query offset: the BitNet-1.58B train shape
+    (and a GQA and a d 64 row) cut into 4 query shards of 1024, each shard
+    run at its offset against the whole K / V, forward with the lse and
+    backward; each shard against the plain versions at that offset, the
+    joined shards against the whole-sequence kernels."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_ref, attention_ref,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s, parts = FLASH_OFFSET_SEQ, FLASH_OFFSET_SHARDS
+    n = s // parts
+    tol = FLASH_BWD_TOL["bfloat16"]
+    rms_bound = BWD_ATOL_RMS["bfloat16"]
+    out_tol = dict(rtol=8e-3, atol=2e-5)              # as phase_flash
+    # exact launches of a row's checks: the whole call and each shard,
+    # forward with the lse and backward, once
+    want = {name: 0 for name in fa.LAUNCHES}
+    want["lse_bfloat16"] = want["backward_bfloat16"] = parts + 1
+    rows = []
+    for label, h, hkv, d in FLASH_OFFSET_SHAPES:
+        fa.reset_launches()
+        rng = np.random.default_rng(s + h + hkv + d + 1)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (1, s, heads, d)).astype(np.float32)).to(
+                device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+            for heads in (h, hkv, hkv, h))
+        scale = 1.0 / d ** 0.5
+        o, lse = fa._launch(q, k, v, True, scale, with_lse=True)
+        dq, dk, dv = fa._launch_bwd(q, k, v, o, lse, do, True, scale)
+        sums = [torch.zeros_like(t, dtype=torch.float32) for t in (dk, dv)]
+        mags = [torch.zeros_like(t, dtype=torch.float32) for t in (dk, dv)]
+        flat = lambda t: t.float().reshape(-1, t.shape[2], d)  # noqa: E731
+        shard_errs, fails = [], []
+        joined_equal = dq_equal = True
+        for r in range(parts):
+            off, sl = r * n, slice(r * n, (r + 1) * n)
+            qs, dos = q[:, :, sl], do[:, :, sl]
+            os_, ls = fa._launch(qs, k, v, True, scale, with_lse=True,
+                                 q_offset=off)
+            grads = fa._launch_bwd(qs, k, v, os_, ls, dos, True, scale,
+                                   q_offset=off)
+            joined_equal &= bool(torch.equal(os_, o[:, :, sl])
+                                 and torch.equal(ls, lse[:, :, sl]))
+            dq_equal &= bool(torch.equal(grads[0], dq[:, :, sl]))
+            for acc, mag, g in zip(sums, mags, grads[1:]):
+                acc += g.float()
+                mag += g.float().abs()
+            # this shard against the plain versions at its offset
+            kw = dict(q_heads=h, kv_heads=hkv, causal=True, q_offset=off)
+            o_ref, lse_ref = attention_fwd_ref(flat(qs), flat(k), flat(v),
+                                               **kw)
+            errs = {"o": float((flat(os_) - o_ref).abs().max()),
+                    "lse": float((ls.reshape(-1, n) - lse_ref).abs().max())}
+            if not torch.allclose(flat(os_), o_ref, **out_tol):
+                fails.append(f"shard {r} o max abs err {errs['o']}")
+            if not torch.allclose(ls.reshape(-1, n), lse_ref, rtol=2e-4,
+                                  atol=2e-5):
+                fails.append(f"shard {r} lse max abs err {errs['lse']}")
+            plain = attention_bwd_ref(flat(qs), flat(k), flat(v), flat(os_),
+                                      lse_ref, flat(dos), **kw)
+            del o_ref
+            for name, g, ref in zip(("dq", "dk", "dv"), grads, plain):
+                g = g.float().reshape(ref.shape)
+                err, need, ok = _within(g, ref, tol["rtol"],
+                                        rms_bound[f"{name}_plain"])
+                errs[name] = err
+                errs[name + "_atol_rms"] = need
+                if not ok or not torch.allclose(g, ref, **tol):
+                    fails.append(f"shard {r} {name} max abs err {err}, "
+                                 f"atol {need} rms(ref)")
+            shard_errs.append(errs)
+            del plain
+        # the shards' dk and dv added up against the whole call's, at the
+        # bf16 tolerance; and, where the c x rms(reference) atol that a
+        # kernel meets against its plain version (one rounding) does not
+        # apply, since each shard rounds its partial sum to bf16 once,
+        # elementwise within those roundings (half an ulp, <= 2^-8 |x|, of
+        # each partial and of the whole)
+        joined = {}
+        for name, acc, mag, whole in zip(("dk", "dv"), sums, mags, (dk, dv)):
+            whole = whole.float()
+            err, need, _ = _within(acc, whole, tol["rtol"], 0.0)
+            rounding = 2.0 ** -8 * (mag + whole.abs()) * 1.01 + 1e-6
+            in_rounding = bool(((acc - whole).abs() <= rounding).all())
+            joined[name] = {"max_abs_err": err, "atol_rms": need,
+                            "within_rounding": in_rounding}
+            if not (in_rounding and torch.allclose(acc, whole, **tol)):
+                fails.append(f"{name} summed over shards: max abs err {err}, "
+                             f"atol {need} rms(whole), within rounding "
+                             f"{in_rounding}")
+        if not joined_equal:
+            fails.append("joined shards' output or lse differ from the whole "
+                         "sequence's")
+        if dict(fa.LAUNCHES) != want:
+            fails.append(f"launches {dict(fa.LAUNCHES)}, want {want}")
+        if fails:
+            raise AssertionError(f"flash_offset {label}: {'; '.join(fails)}")
+        del sums, mags
+
+        # times: the 4 shard calls against the whole call, the plain
+        # versions, SDPA with each shard's boolean offset mask
+        shards = [(r * n, q[:, :, r * n:(r + 1) * n],
+                   do[:, :, r * n:(r + 1) * n]) for r in range(parts)]
+        fwd_lse = [fa._launch(qs, k, v, True, scale, with_lse=True,
+                              q_offset=off) for off, qs, _ in shards]
+        fwd = lambda i: [fa._launch(qs, k, v, True, scale,    # noqa: E731
+                                    q_offset=off) for off, qs, _ in shards]
+        bwd = lambda i: [fa._launch_bwd(                      # noqa: E731
+            qs, k, v, ol[0], ol[1], dos, True, scale, q_offset=off)
+            for (off, qs, dos), ol in zip(shards, fwd_lse)]
+        plain_fwd = lambda i: [attention_ref(                 # noqa: E731
+            flat(qs), flat(k), flat(v), q_heads=h, kv_heads=hkv,
+            q_offset=off) for off, qs, _ in shards]
+        plain_bwd = lambda i: [attention_bwd_ref(             # noqa: E731
+            flat(qs), flat(k), flat(v), flat(ol[0]), ol[1].reshape(-1, n),
+            flat(dos), q_heads=h, kv_heads=hkv, q_offset=off)
+            for (off, qs, dos), ol in zip(shards, fwd_lse)]
+        kc, vc = k.contiguous(), v.contiguous()
+        gqa = {"enable_gqa": True} if hkv != h else {}
+        pos = torch.arange(s, device="cuda")
+        masks = [(off + pos[:n, None]) >= pos[None, :] for off, _, _ in
+                 shards]
+        lib_q = [qs.contiguous() for _, qs, _ in shards]
+        lib_fwd = lambda i: [F.scaled_dot_product_attention(  # noqa: E731
+            qq, kc, vc, attn_mask=m, **gqa) for qq, m in zip(lib_q, masks)]
+        sdp_choice = getattr(torch, "_fused_sdp_choice", None)
+        backend = None
+        if sdp_choice is not None:
+            from torch.nn.attention import SDPBackend
+
+            backend = SDPBackend(sdp_choice(lib_q[0], kc, vc, masks[0], 0.0,
+                                            False, **gqa)).name
+        lib_leaves = [(qq.clone().requires_grad_(),
+                       kc.clone().requires_grad_(),
+                       vc.clone().requires_grad_()) for qq in lib_q]
+        lib_outs = [F.scaled_dot_product_attention(a, b_, c, attn_mask=m,
+                                                   **gqa)
+                    for (a, b_, c), m in zip(lib_leaves, masks)]
+        lib_do = [dos.contiguous() for _, _, dos in shards]
+        lib_bwd = lambda i: [torch.autograd.grad(             # noqa: E731
+            out, leaves, g, retain_graph=True) for out, leaves, g in
+            zip(lib_outs, lib_leaves, lib_do)]
+        # each shard's bound; the row is bound by what bounds its largest
+        bound_f = [flash_bound(1, h, hkv, n, s, d, True, 2, off)
+                   for off, _, _ in shards]
+        bound_b = [flash_bwd_bound(1, h, hkv, n, s, d, True, 2, off)
+                   for off, _, _ in shards]
+        whole_f, whole_b = (flash_bound(1, h, hkv, s, s, d, True, 2),
+                            flash_bwd_bound(1, h, hkv, s, s, d, True, 2))
+        rows.append({
+            "shape": label, "b": 1, "h": h, "hkv": hkv, "s": s, "d": d,
+            "dtype": "bfloat16", "causal": True, "shards": parts,
+            "offsets": [off for off, _, _ in shards],
+            "joined_forward_bit_equal": joined_equal,
+            "dq_bit_equal": dq_equal, "joined_dk_dv": joined,
+            "shard_errors": shard_errs,
+            "max_abs_err": max(e[key] for e in shard_errs
+                               for key in ("o", "dq", "dk", "dv")),
+            "tolerance": {"o": out_tol, "grads": tol,
+                          "atol_rms": rms_bound},
+            "forward": {
+                "ms": cuda_ms(fwd, 10),
+                "device_us": device_us(fwd, 2, "flash_kernel_bf16_wgmma",
+                                       per_call=parts),
+                "whole_ms": cuda_ms(lambda i: fa._launch(
+                    q, k, v, True, scale), 10),
+                "plain_ms": cuda_ms(plain_fwd, 2),
+                "library_ms": cuda_ms(lib_fwd, 10),
+                "library_device_us": all_device_us(lib_fwd, 2),
+                "library_backend": backend,
+                "bound_ms": sum(b for b, _ in bound_f),
+                "bound_by": max(bound_f)[1],
+                "bound_by_shard": [by for _, by in bound_f],
+                "whole_bound_ms": whole_f[0]},
+            "backward": {
+                "ms": cuda_ms(bwd, 10),
+                "device_us": device_us(bwd, 2, FLASH_BWD_KERNELS,
+                                       per_call=parts
+                                       * FLASH_BWD_KERNELS_PER_CALL,
+                                       attempts=4),
+                "whole_ms": cuda_ms(lambda i: fa._launch_bwd(
+                    q, k, v, o, lse, do, True, scale), 10),
+                "plain_ms": cuda_ms(plain_bwd, 2),
+                "library_ms": cuda_ms(lib_bwd, 10),
+                "library_device_us": all_device_us(lib_bwd, 2),
+                "bound_ms": sum(b for b, _ in bound_b),
+                "bound_by": max(bound_b)[1],
+                "bound_by_shard": [by for _, by in bound_b],
+                "whole_bound_ms": whole_b[0]},
+        })
+        del q, k, v, do, o, lse, dq, dk, dv, fwd_lse, lib_leaves, lib_outs
+        torch.cuda.empty_cache()
+    per_row = {key: n for key, n in want.items() if n}
+    for r in rows:
+        emit(dict(phase="flash_offset", launches_per_row=per_row, **r))
+    return rows, {key: n * len(rows) for key, n in per_row.items()}
 
 
 def _tree_bits_equal(a, b) -> bool:
@@ -2341,6 +2748,317 @@ def phase_train():
     return got
 
 
+# full-width BitNet-1.58B through the compressed step: the sequence length
+# of phase train; the error-feedback state adds 2,451,868,160 x 4 B to its
+# 61.1 GB peak (PERF.md §6)
+TRAIN_COMPRESSED_SEQ = 4096
+
+
+def _block_shapes(cfg):
+    """The shapes of one layer's parameters of ``cfg`` at full width (the
+    stacked [L, ...] leaves without L), from a model made on the card."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = build_model(cfg).init(gen)
+    shapes = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(f"{prefix}/{key}", node[key])
+        else:
+            shapes[prefix] = tuple(node.shape[1:])
+    walk("blocks", params["blocks"])
+    del params
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_dist(gloo):
+    """The distributed slice in a one-rank NCCL group on the card (NCCL
+    refuses two ranks on one device): compressed_psum_pod on gradient
+    leaves of BitNet-1.58B's shapes (one layer's leaves, bf16, at full
+    width) equal bit for bit to the CPU's one-rank result through a gloo
+    group; gpipe with one stage equal to the stage run microbatch by
+    microbatch; and BitNet-1.58B's train-shape attention (1 x 4096, 16
+    heads x 128, bf16) through _sdpa under use_rules(make_rules(bitnet,
+    mesh(model=1), train_4k)) (_context_parallel_flash) equal to the plain
+    flash path, values and gradients bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, shape_by_name
+    from repro_torch.distributed.collectives import compressed_psum_pod
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.distributed.sharding import make_rules, use_rules
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention
+
+    if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+        raise AssertionError(f"dist: group {dist.get_backend()}, world "
+                             f"{dist.get_world_size()}")
+    cfg = get_config("bitnet-1.58b")
+    shapes = _block_shapes(cfg)
+    rng = np.random.default_rng(11)
+    grads, errors = {}, {}
+    for path, shape in shapes.items():
+        grads[path] = torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+        errors[path] = torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32) * 1e-3)
+    elements = sum(g.numel() for g in grads.values())
+    t0 = time.perf_counter()
+    mean_c, new_c = compressed_psum_pod(
+        {k: g.cuda() for k, g in grads.items()},
+        {k: e.cuda() for k, e in errors.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    mean_h, new_h = compressed_psum_pod(grads, errors, gloo)
+    psum_equal = all(torch.equal(mean_c[k].cpu(), mean_h[k])
+                     and torch.equal(new_c[k].cpu(), new_h[k])
+                     and mean_c[k].dtype == torch.bfloat16 for k in grads)
+    if not psum_equal:
+        raise AssertionError("dist: compressed_psum_pod on the card differs "
+                             "from the CPU's")
+    del mean_c, new_c, mean_h, new_h, grads, errors
+
+    d = cfg.d_model
+    w = torch.from_numpy(rng.standard_normal((d, d), dtype=np.float32)
+                         / d ** 0.5).cuda()
+    b = torch.from_numpy(rng.standard_normal(d, dtype=np.float32)).cuda()
+    mb = torch.from_numpy(rng.standard_normal((4, d),
+                                              dtype=np.float32)).cuda()
+    stage = lambda p, x: torch.tanh(x @ p[0] + p[1])          # noqa: E731
+    piped = gpipe(stage, (w, b), mb)
+    seq = torch.stack([stage((w, b), mb[t]) for t in range(4)])
+    if not torch.equal(piped, seq):
+        raise AssertionError("dist: gpipe with one stage differs from the "
+                             "sequential run")
+
+    rules = make_rules(cfg, make_host_mesh((1,), ("model",)),
+                       shape_by_name("train_4k"))
+    if rules.table["seq"] != "model":
+        raise AssertionError(f"dist: rules {rules.table}")
+    s, h, hd = 4096, cfg.n_heads, cfg.head_dim_
+    base = [torch.from_numpy(rng.standard_normal((1, s, heads, hd),
+                                                 dtype=np.float32)).to(
+        device="cuda", dtype=torch.bfloat16)
+        for heads in (h, cfg.kv_heads, cfg.kv_heads)]
+    dout = torch.from_numpy(rng.standard_normal((1, s, h, hd),
+                                                dtype=np.float32)).to(
+        device="cuda", dtype=torch.bfloat16)
+    calls = []
+    real = attention._context_parallel_flash
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    fa.reset_launches()
+    results = []
+    for active in (rules, None):
+        leaves = [t.clone().requires_grad_() for t in base]
+        attention._context_parallel_flash = spy
+        try:
+            with use_rules(active):
+                out = attention._sdpa(*leaves, causal=True)
+        finally:
+            attention._context_parallel_flash = real
+        out.backward(dout)
+        results.append([out.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+    cp_equal = all(torch.equal(a, b_) for a, b_ in zip(*results))
+    if len(calls) != 1 or not cp_equal or launches != {
+            "lse_bfloat16": 2, "backward_bfloat16": 2}:
+        raise AssertionError(f"dist: context-parallel calls {len(calls)}, "
+                             f"equal {cp_equal}, flash launches {launches}")
+    emit({"phase": "dist", "backend": "nccl", "world_size": 1,
+          "compressed_psum": {"leaves": len(shapes), "elements": elements,
+                              "card_seconds": card_s,
+                              "equal_to_cpu": True},
+          "gpipe": {"stages": 1, "microbatches": 4, "width": d,
+                    "equal_to_sequential": True},
+          "context_parallel": {"seq": s, "heads": h, "head_dim": hd,
+                               "dtype": "bfloat16",
+                               "equal_to_flash_path": True,
+                               "flash_launches": launches}})
+    return launches
+
+
+def _hold_compressed_state(got, want, lr, steps, where):
+    """The card's compressed TrainState against the CPU's after ``steps``
+    steps, leaf by leaf, at phase train_model's gradient tolerances: rtol
+    1e-4 and an atol of 1e-5 x the gradient's magnitude, max|p| for a
+    parameter and max|g + e| = 127 scale >= 254 max|ef| for the error
+    feedback (|ef| <= scale / 2).  A gradient at an int8 rounding boundary
+    may quantize to the next integer on one side: 1 in 10^4 elements of a
+    tree may miss the tolerance, each within the reach of one int8 step
+    (2 lr a step in a parameter, two scales, 4 max|ef|, in ef), as
+    tests/test_torch_distributed.py holds the gloo ranks against JAX; the
+    fraction is of the whole tree, since one flip in a leaf of 64 norm
+    weights is 1 in 64.  Returns the largest difference and the off
+    fraction of each tree."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    out = {}
+    for name, a_tree, b_tree in (("params", got.params, want.params),
+                                 ("ef", got.ef, want.ef)):
+        worst, off, total = 0.0, 0, 0
+        for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree),
+                        strict=True):
+            a, b = a.detach().cpu().double(), b.detach().double()
+            top = float(b.abs().max())
+            atol = 1e-5 * top * (254 if name == "ef" else 1)
+            reach = 2 * lr * steps if name == "params" else 4 * top + 1e-6
+            diff = (a - b).abs()
+            worst = max(worst, float(diff.max()))
+            off += int((diff > atol + 1e-4 * b.abs()).sum())
+            total += b.numel()
+            if float(diff.max()) > reach:
+                raise AssertionError(
+                    f"train_compressed reduced {where}: {name} leaf "
+                    f"{tuple(b.shape)} max abs diff {float(diff.max())}, "
+                    f"beyond one int8 step ({reach})")
+        out[name] = {"max_abs_diff": worst, "off_fraction": off / total}
+        if off > 1e-4 * total:
+            raise AssertionError(f"train_compressed reduced {where}: {off} "
+                                 f"of {total} {name} elements off")
+    return out
+
+
+def phase_train_compressed(gloo):
+    """Full-width BitNet-1.58B trains 4 steps of one sequence through
+    build_compressed_train_step in the one-rank NCCL group (the int8
+    exchange with error feedback), as phase train runs; then reduced
+    BitNet (float32, no quantization, 3072 tokens) through the compressed
+    step on the card against the CPU (one-rank gloo group) from the same
+    state, 2 steps: losses within rel 1e-5 as phase train_model holds
+    them, and after each step the parameters and the error feedback
+    (_hold_compressed_state)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data import synthetic_batch
+    from repro_torch.distributed.collectives import init_error_state
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamW, init_train_state
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_loop import (
+        TrainState, build_compressed_train_step,
+    )
+
+    cfg = get_config("bitnet-1.58b")
+    seq, steps = TRAIN_COMPRESSED_SEQ, 4
+    api = build_model(cfg)
+    opt = AdamW(lr=TRAIN_LR)
+    gen = torch.Generator(device=api.device)
+    gen.manual_seed(0)
+    state = init_train_state(api, opt, gen, compressed=True)
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    ef_bytes = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state.ef))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        cfg, batch=1, seq=seq, step=0).items()}
+    step = build_compressed_train_step(api, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    # the step is handed the state's last reference, so that the old
+    # error-feedback state goes once exchanged (train_loop)
+    box = [state]
+    del state
+    losses, norms, seconds, ef_nonzero = [], [], [], None
+    for i in range(steps):
+        t = time.perf_counter()
+        new, m = step(box.pop(), batch)
+        box.append(new)
+        del new
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        seconds.append(time.perf_counter() - t)
+        if i == 0:
+            ef_nonzero = any(bool(e.abs().max() > 0)
+                             for e in tree_leaves(box[0].ef))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+    # as phase train: remat per block recomputes every forward once
+    forwards = 2 if cfg.remat == "block" else 1
+    want = {"lse_bfloat16": forwards * cfg.layers * steps,
+            "backward_bfloat16": cfg.layers * steps}
+    if launches != want:
+        raise AssertionError(f"train_compressed flash launches {launches}, "
+                             f"want {want}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train_compressed: losses {losses}, grad "
+                             f"norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_compressed: loss did not fall: "
+                             f"{losses}")
+    if not ef_nonzero:
+        raise AssertionError("train_compressed: ef is zero after step 1")
+    del box, batch, api, step
+    torch.cuda.empty_cache()
+
+    # reduced BitNet: the compressed step on the card against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rcfg = reduced(get_config("bitnet-1.58b")).replace(
+        dtype="float32", quantization="none")
+    cpu, gpu = build_model(rcfg, device="cpu"), build_model(rcfg)
+    ropt = AdamW(lr=1e-3)
+    state_cpu = init_train_state(cpu, ropt, 0, compressed=True)
+    params = params_from_jax(_numpy_tree(state_cpu.params))
+    state_gpu = TrainState(params, ropt.init(params),
+                           init_error_state(params))
+    step_cpu = build_compressed_train_step(cpu, ropt, gloo)
+    step_gpu = build_compressed_train_step(gpu, ropt)
+    pairs, held = [], []
+    for i in range(2):
+        b = synthetic_batch(rcfg, batch=1, seq=3072, step=i)
+        state_cpu, m_cpu = step_cpu(state_cpu, {
+            k: torch.from_numpy(v) for k, v in b.items()})
+        state_gpu, m_gpu = step_gpu(state_gpu, {
+            k: torch.from_numpy(v).cuda() for k, v in b.items()})
+        lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
+        pairs.append((lg, lc))
+        if abs(lg - lc) > 1e-5 * abs(lc):
+            raise AssertionError(f"train_compressed reduced step {i}: loss "
+                                 f"{lg} on the card, {lc} on the CPU")
+        held.append(_hold_compressed_state(state_gpu, state_cpu, 1e-3,
+                                           i + 1, f"step {i}"))
+    reduced_seq = ({"reduced": {"seq": [4096, seq]}} if seq < 4096 else {})
+    emit({"phase": "train_compressed", "config": cfg.name,
+          "params": n_params, "dtype": cfg.dtype, "batch": 1, "seq": seq,
+          **reduced_seq, "steps": steps, "lr": TRAIN_LR,
+          "group": {"backend": "nccl", "world_size": 1},
+          "ef_bytes": ef_bytes, "losses": losses, "grad_norms": norms,
+          "step_seconds": seconds,
+          "tokens_per_second": seq / (sum(seconds[1:]) / (steps - 1)),
+          "peak_memory_bytes": peak, "ef_nonzero_after_step_1": True,
+          "flash_launches": launches,
+          "reduced_card_vs_cpu": {"config": rcfg.name, "dtype": "float32",
+                                  "seq": 3072, "losses_card_cpu": pairs,
+                                  "state_card_cpu": held,
+                                  "tolerance": {
+                                      "loss_rel": 1e-5, "rtol": 1e-4,
+                                      "params_atol": "1e-5 * max|p|",
+                                      "ef_atol": "1e-5 * 254 * max|ef|",
+                                      "off_fraction": 1e-4,
+                                      "params_reach": "2 lr x steps",
+                                      "ef_reach": "4 max|ef|"}}})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2366,6 +3084,7 @@ def main() -> int:
     run(phase_model)
     cfg, params, backend, launches = run(phase_serve)
     run(phase_window, cfg, params, backend)
+    sharded_launches = run(phase_sharded, cfg, params)
     load_launches = run(phase_serve_load, cfg, params)
     bs_rows = run(phase_block_sparse)
     bs_launches = {"ztb": run(phase_ztb), "zoo": run(phase_zoo)}
@@ -2374,6 +3093,8 @@ def main() -> int:
     ssd_rows = run(phase_ssd)
     fa_rows = run(phase_flash)
     bwd_rows = run(phase_flash_bwd)
+    offset_rows, offset_launches = run(phase_flash_offset)
+    torch.cuda.empty_cache()
     run(phase_hybrid_model)
     hy_launches = run(phase_hybrid_serve)
     flash_launches = {"hybrid_serve": hy_launches["flash"]}
@@ -2386,10 +3107,32 @@ def main() -> int:
     train_model_launches = run(phase_train_model)
     torch.cuda.empty_cache()
     train_launches = run(phase_train)
+    torch.cuda.empty_cache()
+    from repro_torch.distributed import process_group
+
+    # a one-rank NCCL group on the card (NCCL refuses two ranks on one
+    # device), with a one-rank gloo group beside it for the CPU's side
+    store = os.path.join(ROOT, "build", "dist_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    with process_group(store, 0, 1):
+        import torch.distributed as dist
+
+        gloo = dist.new_group([0], backend="gloo")
+        dist_launches = run(phase_dist, gloo)
+        torch.cuda.empty_cache()
+        tc_launches = run(phase_train_compressed, gloo)
     flash_launches["train_model"] = train_model_launches["lse_float32"]
     flash_launches["train"] = train_launches["lse_bfloat16"]
+    flash_launches["flash_offset"] = offset_launches["lse_bfloat16"]
+    flash_launches["dist"] = dist_launches["lse_bfloat16"]
+    flash_launches["train_compressed"] = tc_launches["lse_bfloat16"]
     bwd_launches = {"train_model": train_model_launches["backward_float32"],
-                    "train": train_launches["backward_bfloat16"]}
+                    "train": train_launches["backward_bfloat16"],
+                    "flash_offset": offset_launches["backward_bfloat16"],
+                    "dist": dist_launches["backward_bfloat16"],
+                    "train_compressed": tc_launches["backward_bfloat16"]}
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
 
     head = next(r for r in rows if r["stage"] == "mlp_up" and r["m"] == 1
@@ -2402,12 +3145,15 @@ def main() -> int:
         "name": "bitlinear", "route": "cuda", "redesigned": 15,
         "source": "src/repro_torch/csrc/bitlinear.cu",
         "replaces": "src/repro/kernels/bitlinear/kernel.py:75",
-        "launches": sum(launches.values()) + sum(load_launches.values()),
+        "launches": sum(launches.values()) + sum(load_launches.values())
+        + sharded_launches,
         "launches_by_bits": {b: launches.get(b, 0) + load_launches.get(b, 0)
+                             + (sharded_launches if b == 8 else 0)
                              for b in sorted(set(launches)
                                              | set(load_launches))},
         "launches_by_phase": {"serve": sum(launches.values()),
-                              "serve_load": sum(load_launches.values())},
+                              "serve_load": sum(load_launches.values()),
+                              "sharded": sharded_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "shape": {k: head[k] for k in ("stage", "m", "k", "n", "bits")},
         "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -2458,6 +3204,13 @@ def main() -> int:
             "shape", "h", "hkv", "d", "causal", "max_abs_err", "ms",
             "device_us", "plain_ms", "library_ms", "bound_ms", "bound_by")}
             for r in fa_rows[3:]],
+        "offset_rows": [dict({k: r[k] for k in (
+            "shape", "h", "hkv", "s", "d", "shards", "offsets",
+            "max_abs_err", "joined_forward_bit_equal")}, **{
+            k: r["forward"][k] for k in (
+                "ms", "device_us", "whole_ms", "plain_ms", "library_ms",
+                "library_backend", "bound_ms", "bound_by")})
+            for r in offset_rows],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "ported": 18,
         "redesigned": 19,
@@ -2480,6 +3233,13 @@ def main() -> int:
             "ms", "device_us", "plain_ms", "library_ms",
             "library_device_us", "bound_ms", "bound_by")}
             for r in bwd_rows[1:]],
+        "offset_rows": [dict({k: r[k] for k in (
+            "shape", "h", "hkv", "s", "d", "shards", "offsets",
+            "dq_bit_equal", "joined_dk_dv")}, **{
+            k: r["backward"][k] for k in (
+                "ms", "device_us", "whole_ms", "plain_ms", "library_ms",
+                "library_device_us", "bound_ms", "bound_by")})
+            for r in offset_rows],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -6,8 +6,9 @@ port uses the JAX package's layout, per-layer leaves stacked ``[L, ...]``)
 and turns every leaf into a torch tensor on ``device`` of the same type
 (bfloat16 included), so that both packages compute with the same
 weights.  ``train_state_from_jax(jax.tree.map(np.asarray, state))`` does
-the same for a whole ``TrainState`` (params and the AdamW step and
-moments), so that both packages train from the same state.
+the same for a whole ``TrainState`` (params, the AdamW step and moments,
+and the compressed step's error-feedback state ``ef`` where it has one),
+so that both packages train from the same state.
 """
 from __future__ import annotations
 
@@ -39,15 +40,11 @@ def params_from_jax(np_params: Any, *, device: DeviceLike = None) -> Any:
 
 def train_state_from_jax(np_state: Any, *, device: DeviceLike = None):
     """The JAX package's ``TrainState`` with numpy leaves (``params``,
-    ``opt.step``, ``opt.mu``, ``opt.nu``) -> the port's ``TrainState``.
-    The compressed variant's error-feedback state belongs to the
-    distributed slice and is refused."""
+    ``opt.step``, ``opt.mu``, ``opt.nu``, and ``ef`` or None) -> the port's
+    ``TrainState``."""
     from repro_torch.train.optimizer import AdamWState
     from repro_torch.train.train_loop import TrainState
 
-    if np_state.ef is not None:
-        raise ValueError("the error-feedback state of the compressed train "
-                         "step is not ported (ROADMAP.md, Queue 1)")
     device = resolve_device(device)
     opt = np_state.opt
     step = torch.from_numpy(np.array(opt.step, dtype=np.int32)).to(device)
@@ -55,4 +52,6 @@ def train_state_from_jax(np_state: Any, *, device: DeviceLike = None):
         params=params_from_jax(np_state.params, device=device),
         opt=AdamWState(step=step,
                        mu=params_from_jax(opt.mu, device=device),
-                       nu=params_from_jax(opt.nu, device=device)))
+                       nu=params_from_jax(opt.nu, device=device)),
+        ef=(None if np_state.ef is None
+            else params_from_jax(np_state.ef, device=device)))

@@ -9,9 +9,10 @@ Produces explicit, testable assignment plans:
 * Output projection: single GEMM N-partitioned across all Legions.
 
 The same plan objects drive the cycle simulator's mapping policy and are
-mirrored by the XLA sharding rules in ``repro_torch.distributed.sharding`` (heads
-over the ``model`` mesh axis ≙ heads over Legions; KV replication within a
-group ≙ KV multicast).
+mirrored by the sharding rules of ``repro_torch.distributed.sharding``
+(heads over the ``model`` mesh axis ≙ heads over Legions; KV replication
+within a group ≙ KV multicast), whose ``legion_rules`` put a plan's Legion
+axis on a mesh axis for ``legion.machine.ShardedExecutor``.
 """
 from __future__ import annotations
 

@@ -13,6 +13,13 @@
 // acc / max(l, 1e-30) in q's type.  q, k, v and o are read through
 // (batch, head, position) strides with unit stride along the head dimension,
 // so [B, S, H, d] tensors and their [B, H, S, d] transposes go in uncopied.
+// A query offset places query row i at position q_offset + i, as the JAX
+// package's _tile_scores does for a context-parallel shard
+// (src/repro/models/attention.py): the causal mask, the last kv tile a
+// block loads and the diagonal-tile test all read the shifted position, so
+// a shard of the queries at offset o computes exactly the rows o.. of the
+// whole-sequence call.  The longest causal rows still go first: the block
+// order is the same, every row longer by the offset.
 // For training, both kernels also write each row's log-sum-exp m + log(l)
 // (natural log, float32) when given an `lse` pointer: the residual that the
 // backward (flash_attention_bwd.cu) recomputes the probabilities from, as
@@ -88,7 +95,7 @@ flash_kernel_f32(const float* __restrict__ q, Strides sq,
                  const float* __restrict__ v, Strides sv,
                  float* __restrict__ o, Strides so, float* __restrict__ lse,
                  int H, int Hkv, int Sq, int Sk, int D, float scale,
-                 int causal) {
+                 int causal, int q_offset) {
   extern __shared__ float smem[];
   const int pd = D + 1;
   float* qs = smem;                  // [BQ][pd]
@@ -114,7 +121,7 @@ flash_kernel_f32(const float* __restrict__ q, Strides sq,
   }
 
   int nkt = (Sk + BK - 1) / BK;
-  if (causal) nkt = min(nkt, (min(q0 + BQ, Sq) - 1) / BK + 1);
+  if (causal) nkt = min(nkt, (q_offset + min(q0 + BQ, Sq) - 1) / BK + 1);
 
   float m[4], l[4], acc[4][8];
 #pragma unroll
@@ -155,7 +162,7 @@ flash_kernel_f32(const float* __restrict__ q, Strides sq,
 
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty + 16 * r;
+      const int qpos = q_offset + q0 + ty + 16 * r;
       float mx = NEG_BIG;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -264,7 +271,7 @@ flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
                         __nv_bfloat16* __restrict__ o, Strides so,
                         float* __restrict__ lse, int H, int Hkv, int Sq,
                         int Sk, int D, float scale_log2, float masked_raw,
-                        int causal) {
+                        int causal, int q_offset) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * W_STAGES];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -288,7 +295,8 @@ flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x == 0) {
     int nkt = (Sk + W_BN - 1) / W_BN;
-    if (causal) nkt = min(nkt, (min(q0 + W_BM, Sq) - 1) / W_BN + 1);
+    if (causal)
+      nkt = min(nkt, (q_offset + min(q0 + W_BM, Sq) - 1) / W_BN + 1);
     tiles = nkt;
     mbar_init(q_full, 1);
     for (int st = 0; st < W_STAGES; ++st) {
@@ -358,7 +366,7 @@ flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
       // (-1e30 once scaled, as in the Pallas kernel; a kernel argument, so
       // it holds no register), a key beyond Sk -inf
       const bool masked = k0 + W_BN > Sk ||
-                          (causal && k0 + W_BN - 1 > q0 + 64 * wg);
+                          (causal && k0 + W_BN - 1 > q_offset + q0 + 64 * wg);
       if (masked) {
 #pragma unroll
         for (int j = 0; j < 16; ++j)
@@ -370,7 +378,7 @@ flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
               float& v = s[4 * j + 2 * h + e];
               if (kpos >= Sk)
                 v = -INFINITY;
-              else if (causal && row0 + 8 * h < kpos)
+              else if (causal && q_offset + row0 + 8 * h < kpos)
                 v = masked_raw;
             }
       }
@@ -471,7 +479,7 @@ flash_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
 int launch_bf16(const void* q, Strides sq, const void* k, Strides sk,
                 const void* v, Strides sv, void* o, Strides so, float* lse,
                 int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
-                int causal, cudaStream_t stream) {
+                int causal, int q_offset, cudaStream_t stream) {
   // what TMA takes: 16-byte aligned bases and byte strides, d % 8 == 0
   if (D % 8 != 0 || B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
@@ -481,7 +489,7 @@ int launch_bf16(const void* q, Strides sq, const void* k, Strides sk,
     return static_cast<int>(cudaErrorInvalidValue);
   static void (*const kernels[8])(CUtensorMap, CUtensorMap, CUtensorMap,
                                   __nv_bfloat16*, Strides, float*, int, int,
-                                  int, int, int, float, float, int) = {
+                                  int, int, int, float, float, int, int) = {
       flash_kernel_bf16_wgmma<1>, flash_kernel_bf16_wgmma<2>,
       flash_kernel_bf16_wgmma<3>, flash_kernel_bf16_wgmma<4>,
       flash_kernel_bf16_wgmma<5>, flash_kernel_bf16_wgmma<6>,
@@ -494,14 +502,14 @@ int launch_bf16(const void* q, Strides sq, const void* k, Strides sk,
   const dim3 grid((Sq + W_BM - 1) / W_BM, B * H);
   kernel<<<grid, W_THREADS, W_SMEM_BYTES, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, lse, H, Hkv, Sq, Sk,
-      D, scale_log2, NEG_BIG / scale_log2, causal);
+      D, scale_log2, NEG_BIG / scale_log2, causal, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const void* q, Strides sq, const void* k, Strides sk,
                const void* v, Strides sv, void* o, Strides so, float* lse,
                int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
-               int causal, cudaStream_t stream) {
+               int causal, int q_offset, cudaStream_t stream) {
   const int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -510,7 +518,7 @@ int launch_f32(const void* q, Strides sq, const void* k, Strides sk,
   flash_kernel_f32<<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), sq, static_cast<const float*>(k), sk,
       static_cast<const float*>(v), sv, static_cast<float*>(o), so, lse, H,
-      Hkv, Sq, Sk, D, scale, causal);
+      Hkv, Sq, Sk, D, scale, causal, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,15 +533,19 @@ int launch_f32(const void* q, Strides sq, const void* k, Strides sk,
 // elements); d has unit stride.  `lse`, when not null, receives the float32
 // log-sum-exp of each row's scaled scores, [B, H, Sq] contiguous, as the
 // training forward saves it for the backward (flash_attention_bwd.cu); the
-// serve path passes null and writes nothing more.
+// serve path passes null and writes nothing more.  `q_offset` >= 0 is the
+// position of query row 0 (a context-parallel shard's first row; 0 for a
+// whole sequence).  It comes last, after the stream, so that a library
+// built before it took the argument ignores it when called with 0.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, long long sq_b, long long sq_h, long long sq_s,
     const void* k, long long sk_b, long long sk_h, long long sk_s,
     const void* v, long long sv_b, long long sv_h, long long sv_s, void* o,
     long long so_b, long long so_h, long long so_s, int B, int H, int Hkv,
-    int Sq, int Sk, int D, float scale, int causal, void* lse, void* stream) {
+    int Sq, int Sk, int D, float scale, int causal, void* lse, void* stream,
+    int q_offset) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
-      D < 1 || D > DMAX || (dtype != 0 && dtype != 1))
+      D < 1 || D > DMAX || q_offset < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides q_s{sq_b, sq_h, sq_s}, k_s{sk_b, sk_h, sk_s},
       v_s{sv_b, sv_h, sv_s}, o_s{so_b, so_h, so_s};
@@ -541,7 +553,7 @@ extern "C" int flash_attention_launch(
   float* row_lse = static_cast<float*>(lse);
   if (dtype == 0)
     return launch_f32(q, q_s, k, k_s, v, v_s, o, o_s, row_lse, B, H, Hkv, Sq,
-                      Sk, D, scale, causal, s);
+                      Sk, D, scale, causal, q_offset, s);
   return launch_bf16(q, q_s, k, k_s, v, v_s, o, o_s, row_lse, B, H, Hkv, Sq,
-                     Sk, D, scale, causal, s);
+                     Sk, D, scale, causal, q_offset, s);
 }

@@ -13,7 +13,11 @@
 // causal mask is top-left (query position >= key position, as the forward
 // kernel's), query head h reads KV head h / (H / Hkv) and the KV gradients
 // sum over the group, sums are float32, and the gradients come out in the
-// operands' type.
+// operands' type.  A query offset places query row i at position
+// q_offset + i (a context-parallel shard; `_tile_scores`' q_offset): the
+// causal mask, (b)'s first query tile and (c)'s last key tile read the
+// shifted position, so a shard's dq equals the whole-sequence call's rows
+// and the shards' dk and dv add up to the whole one's.
 //
 // On the card a scan carried across tiles becomes blocks that own their
 // output, so that no float atomics are needed and a run is deterministic
@@ -166,15 +170,15 @@ __device__ __forceinline__ void probabilities(float (&s)[4][4],
                                               const float* ls, int q0,
                                               int k0, int Sq, int Sk,
                                               float scale, int causal,
-                                              int tx, int ty) {
+                                              int q_offset, int tx, int ty) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const int qpos = q0 + ty + 16 * r;
+    const int qrow = q0 + ty + 16 * r;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int kpos = k0 + tx + 16 * c;
-      const bool seen =
-          qpos < Sq && kpos < Sk && !(causal && qpos < kpos);
+      const bool seen = qrow < Sq && kpos < Sk &&
+                        !(causal && q_offset + qrow < kpos);
       s[r][c] = seen ? expf(s[r][c] * scale - ls[ty + 16 * r]) : 0.0f;
     }
   }
@@ -213,7 +217,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, Strides sq,
                       const float* __restrict__ dvec, float* __restrict__ dk,
                       Strides sdk, float* __restrict__ dv, Strides sdv, int H,
                       int Hkv, int Sq, int Sk, int D, float scale,
-                      int causal) {
+                      int causal, int q_offset) {
   extern __shared__ float smem[];
   const int pd = D + 1;
   float* ks = smem;                  // [BK][pd]
@@ -238,8 +242,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, Strides sq,
 #pragma unroll
     for (int c = 0; c < 8; ++c) dka[r][c] = dva[r][c] = 0.0f;
 
-  // top-left causal: a query tile ending before k0 sees none of these keys
-  const int qt0 = causal ? k0 / BQ : 0;
+  // top-left causal: a query tile ending before position k0 sees none of
+  // these keys
+  const int qt0 = causal ? max(k0 - q_offset, 0) / BQ : 0;
   const int nqt = (Sq + BQ - 1) / BQ;
   for (int g = 0; g < group; ++g) {
     const long long hi = hk * group + g;
@@ -260,7 +265,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, Strides sq,
 
       float p[4][4], dp[4][4];
       tile_dot(p, qs, ks, D, pd, tx, ty);
-      probabilities(p, ls, q0, k0, Sq, Sk, scale, causal, tx, ty);
+      probabilities(p, ls, q0, k0, Sq, Sk, scale, causal, q_offset, tx, ty);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -308,7 +313,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, Strides sq,
                     const float* __restrict__ lse,
                     const float* __restrict__ dvec, float* __restrict__ dq,
                     Strides sdq, int H, int Hkv, int Sq, int Sk, int D,
-                    float scale, int causal) {
+                    float scale, int causal, int q_offset) {
   extern __shared__ float smem[];
   const int pd = D + 1;
   float* qs = smem;                  // [BQ][pd]
@@ -336,7 +341,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, Strides sq,
   const float* vh = v + bi * sv.b + hk * sv.h;
 
   int nkt = (Sk + BK - 1) / BK;
-  if (causal) nkt = min(nkt, (min(q0 + BQ, Sq) - 1) / BK + 1);
+  if (causal) nkt = min(nkt, (q_offset + min(q0 + BQ, Sq) - 1) / BK + 1);
 
   float dqa[4][8];
 #pragma unroll
@@ -353,7 +358,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, Strides sq,
 
     float p[4][4], dp[4][4];
     tile_dot(p, qs, ks, D, pd, tx, ty);
-    probabilities(p, ls, q0, k0, Sq, Sk, scale, causal, tx, ty);
+    probabilities(p, ls, q0, k0, Sq, Sk, scale, causal, q_offset, tx, ty);
     tile_dot(dp, dos, vs, D, pd, tx, ty);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -593,13 +598,16 @@ __device__ __forceinline__ void load_stage(const Tiles& t, int st,
 // DK, s^T = k q^T recomputed in each pass, then the pass's gradients
 // stored.  The warpgroup's 64 keys start at kw; its thread holds the rows
 // key0 and key0 + 8 and the columns col0 (+ 1) + 8 j of an m64n64 tile.
+// The loop reads kw and key0 less the query offset (kw_q, key_q), which a
+// query row is compared with as it stands, so that the offset holds no
+// register of its own in the loop.
 template <int KS, bool DV, bool DK>
 __device__ __forceinline__ void dkdv_pass(
     const Tiles& t, const uint64_t* bars, const float* stats, int first,
-    const int& tiles, const int& per_head, const int& qt0, int wg, int kw,
-    int key0, int col0, int lane, int Sq, int Sk, int D, float scale,
-    float scale_log2, int causal, bf16* dk, long long sdk, bf16* dv,
-    long long sdv) {
+    const int& tiles, const int& per_head, const int& qt0, int wg, int kw_q,
+    int key_q, int col0, int lane, int Sq, int Sk, int D, float scale,
+    float scale_log2, int causal, int q_offset, bf16* dk, long long sdk,
+    bf16* dv, long long sdv) {
   float dk0[n1(KS) / 2], dk1[n2_regs(KS)], dv0[n1(KS) / 2],
       dv1[n2_regs(KS)];
   zero(dk0);
@@ -625,12 +633,12 @@ __device__ __forceinline__ void dkdv_pass(
     fence_regs(s);
     if constexpr (DK) fence_regs(dp);
 
-    // p^T = 2^(s^T scale log2(e) - lse log2(e)), 0 where a query precedes a
-    // key (causal) or lies beyond Sq (only diagonal and ragged tiles are
-    // masked), and ds^T = p^T (dp^T - D), in place
+    // p^T = 2^(s^T scale log2(e) - lse log2(e)), 0 where a query's
+    // position precedes a key (causal) or it lies beyond Sq (only diagonal
+    // and ragged tiles are masked), and ds^T = p^T (dp^T - D), in place
     const float* ls = stats + st * G_STATS;
     const bool masked =
-        q0 + G_ROWS > Sq || (causal && q0 < kw + G_ROWS - 1);
+        q0 + G_ROWS > Sq || (causal && q0 < kw_q + G_ROWS - 1);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + col0);
@@ -644,7 +652,7 @@ __device__ __forceinline__ void dkdv_pass(
           float p = ex2(fmaf(s[i], scale_log2, -(e ? l.y : l.x)));
           if (masked) {
             const int query = q0 + 8 * j + col0 + e;
-            if (query >= Sq || (causal && query < key0 + 8 * h)) p = 0.0f;
+            if (query >= Sq || (causal && query < key_q + 8 * h)) p = 0.0f;
           }
           s[i] = p;
           if constexpr (DK) dp[i] = p * (dp[i] - (e ? dd.y : dd.x));
@@ -669,9 +677,9 @@ __device__ __forceinline__ void dkdv_pass(
     if (lane == 0) mbar_arrive(smem_u32(&bars[1 + G_STAGES + st]));
   }
   if constexpr (DK)
-    store_rows<KS>(dk, sdk, dk0, dk1, scale, key0, Sk, D, col0);
+    store_rows<KS>(dk, sdk, dk0, dk1, scale, key_q + q_offset, Sk, D, col0);
   if constexpr (DV)
-    store_rows<KS>(dv, sdv, dv0, dv1, 1.0f, key0, Sk, D, col0);
+    store_rows<KS>(dv, sdv, dv0, dv1, 1.0f, key_q + q_offset, Sk, D, col0);
 }
 
 // (b) dk and dv of 128 keys of one (batch, KV head), 64 a consumer
@@ -690,7 +698,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             bf16* __restrict__ dk, Strides sdk,
                             bf16* __restrict__ dv, Strides sdv, int H,
                             int Hkv, int Sq, int Sk, int D, float scale,
-                            float scale_log2, int causal) {
+                            float scale_log2, int causal, int q_offset) {
   constexpr int passes = KS > 4 ? 2 : 1;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * G_STAGES];
@@ -710,8 +718,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bi = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int group = H / Hkv;
   if (threadIdx.x == 0) {
-    // top-left causal: a query tile ending before k0 sees none of its keys
-    const int first = causal ? k0 / G_ROWS : 0;
+    // top-left causal: a query tile ending before position k0 sees none of
+    // its keys
+    const int first = causal ? max(k0 - q_offset, 0) / G_ROWS : 0;
     const int n = max((Sq + G_ROWS - 1) / G_ROWS - first, 0);
     qt0 = first;
     per_head = n;
@@ -753,6 +762,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
     const int kw = k0 + G_ROWS * wg;                 // the warpgroup's keys
     const int key0 = kw + 16 * warp + lane / 4;
+    const int kw_q = kw - q_offset, key_q = key0 - q_offset;
     const int col0 = 2 * (lane % 4);
     bf16* dkb = dk + bi * sdk.b + hk * sdk.h;
     bf16* dvb = dv + bi * sdv.b + hk * sdv.h;
@@ -760,15 +770,18 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     turns_start(wg);
     if constexpr (passes == 1) {
       dkdv_pass<KS, true, true>(t, bars, stats, 0, tiles, per_head, qt0, wg,
-                                kw, key0, col0, lane, Sq, Sk, D, scale,
-                                scale_log2, causal, dkb, sdk.s, dvb, sdv.s);
+                                kw_q, key_q, col0, lane, Sq, Sk, D, scale,
+                                scale_log2, causal, q_offset, dkb, sdk.s,
+                                dvb, sdv.s);
     } else {
       dkdv_pass<KS, true, false>(t, bars, stats, 0, tiles, per_head, qt0,
-                                 wg, kw, key0, col0, lane, Sq, Sk, D, scale,
-                                 scale_log2, causal, dkb, sdk.s, dvb, sdv.s);
+                                 wg, kw_q, key_q, col0, lane, Sq, Sk, D,
+                                 scale, scale_log2, causal, q_offset, dkb,
+                                 sdk.s, dvb, sdv.s);
       dkdv_pass<KS, false, true>(t, bars, stats, tiles, tiles, per_head, qt0,
-                                 wg, kw, key0, col0, lane, Sq, Sk, D, scale,
-                                 scale_log2, causal, dkb, sdk.s, dvb, sdv.s);
+                                 wg, kw_q, key_q, col0, lane, Sq, Sk, D,
+                                 scale, scale_log2, causal, q_offset, dkb,
+                                 sdk.s, dvb, sdv.s);
     }
     turns_done(wg);
   }
@@ -786,7 +799,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ dvec,
                           bf16* __restrict__ dq, Strides sdq, int H, int Hkv,
                           int Sq, int Sk, int D, float scale,
-                          float scale_log2, int causal) {
+                          float scale_log2, int causal, int q_offset) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * G_STAGES];
   __shared__ int tiles;
@@ -801,7 +814,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bi = blockIdx.x / H, hi = blockIdx.x % H, hk = hi / (H / Hkv);
   if (threadIdx.x == 0) {
     int n = (Sk + G_ROWS - 1) / G_ROWS;
-    if (causal) n = min(n, (min(q0 + G_BLOCK, Sq) - 1) / G_ROWS + 1);
+    if (causal)
+      n = min(n, (q_offset + min(q0 + G_BLOCK, Sq) - 1) / G_ROWS + 1);
     tiles = n;
     init_ring(bars, 1);
   }
@@ -835,6 +849,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l2[h] = row < Sq ? lse[at] * LOG2E : 0.0f;
       dr[h] = row < Sq ? dvec[at] : 0.0f;
     }
+    // the loop reads the rows' query positions in place of the rows, so
+    // that the offset holds no register of its own in it (as dkdv_pass)
+    const int pos_w = q_offset + qw, pos0 = q_offset + row0;
     float dq0[n1(KS) / 2], dq1[n2_regs(KS)];
     zero(dq0);
     zero(dq1);
@@ -860,10 +877,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(s);
       fence_regs(dp);
 
-      // ds = p (dp - D), p = 0 where a key follows the query (causal) or
-      // lies beyond Sk: only diagonal and ragged tiles are masked
+      // ds = p (dp - D), p = 0 where a key follows the query's position
+      // (causal) or lies beyond Sk: only diagonal and ragged tiles are
+      // masked
       const bool masked =
-          k0 + G_ROWS > Sk || (causal && k0 + G_ROWS - 1 > qw);
+          k0 + G_ROWS > Sk || (causal && k0 + G_ROWS - 1 > pos_w);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -874,7 +892,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             float p = ex2(fmaf(s[i], scale_log2, -l2[h]));
             if (masked) {
               const int key = k0 + 8 * j + col0 + e;
-              if (key >= Sk || (causal && row0 + 8 * h < key)) p = 0.0f;
+              if (key >= Sk || (causal && pos0 + 8 * h < key)) p = 0.0f;
             }
             dp[i] = p * (dp[i] - dr[h]);
           }
@@ -891,7 +909,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     turns_done(wg);
     store_rows<KS>(dq + bi * sdq.b + hi * sdq.h, sdq.s, dq0, dq1, scale,
-                   row0, Sq, D, col0);
+                   pos0 - q_offset, Sq, D, col0);
   }
 }
 
@@ -916,7 +934,7 @@ int launch_dot(const Operands& a, float* dvec, int B, int H, int Sq, int D,
 
 int launch_f32(const Operands& a, const float* lse, float* dvec, int B, int H,
                int Hkv, int Sq, int Sk, int D, float scale, int causal,
-               cudaStream_t stream) {
+               int q_offset, cudaStream_t stream) {
   const int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel,
@@ -936,13 +954,14 @@ int launch_f32(const Operands& a, const float* lse, float* dvec, int B, int H,
       <<<dim3((Sk + BK - 1) / BK, B * Hkv), THREADS, bytes, stream>>>(
           q, a.sq, k, a.sk, v, a.sv, dout, a.sdo, lse, dvec,
           static_cast<float*>(a.dk), a.sdk, static_cast<float*>(a.dv), a.sdv,
-          H, Hkv, Sq, Sk, D, scale, causal);
+          H, Hkv, Sq, Sk, D, scale, causal, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_kernel
       <<<dim3((Sq + BQ - 1) / BQ, B * H), THREADS, bytes, stream>>>(
           q, a.sq, k, a.sk, v, a.sv, dout, a.sdo, lse, dvec,
-          static_cast<float*>(a.dq), a.sdq, H, Hkv, Sq, Sk, D, scale, causal);
+          static_cast<float*>(a.dq), a.sdq, H, Hkv, Sq, Sk, D, scale, causal,
+          q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -950,7 +969,7 @@ int launch_f32(const Operands& a, const float* lse, float* dvec, int B, int H,
 template <int KS>
 int launch_wgmma(const Operands& a, const CUtensorMap (&maps)[4],
                  const float* lse, const float* dvec, int B, int H, int Hkv,
-                 int Sq, int Sk, int D, float scale, int causal,
+                 int Sq, int Sk, int D, float scale, int causal, int q_offset,
                  cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkdv_wgmma_kernel<KS>,
@@ -966,20 +985,20 @@ int launch_wgmma(const Operands& a, const CUtensorMap (&maps)[4],
          G_SMEM_BYTES, stream>>>(
           maps[0], maps[1], maps[2], maps[3], lse, dvec,
           static_cast<bf16*>(a.dk), a.sdk, static_cast<bf16*>(a.dv), a.sdv,
-          H, Hkv, Sq, Sk, D, scale, scale_log2, causal);
+          H, Hkv, Sq, Sk, D, scale, scale_log2, causal, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_wgmma_kernel<KS>
       <<<dim3(B * H, (Sq + G_BLOCK - 1) / G_BLOCK), G_THREADS, G_SMEM_BYTES,
          stream>>>(maps[0], maps[1], maps[2], maps[3], lse, dvec,
                    static_cast<bf16*>(a.dq), a.sdq, H, Hkv, Sq, Sk, D, scale,
-                   scale_log2, causal);
+                   scale_log2, causal, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const Operands& a, const float* lse, float* dvec, int B,
                 int H, int Hkv, int Sq, int Sk, int D, float scale,
-                int causal, cudaStream_t stream) {
+                int causal, int q_offset, cudaStream_t stream) {
   // what TMA takes: 16-byte aligned bases and byte strides, d % 8 == 0
   // (ops.tma_layout_error); 64-row boxes over q, k, v and dout
   CUtensorMap maps[4];
@@ -993,11 +1012,12 @@ int launch_bf16(const Operands& a, const float* lse, float* dvec, int B,
   if (rc != 0) return rc;
   static int (*const by_width[8])(const Operands&, const CUtensorMap (&)[4],
                                    const float*, const float*, int, int, int,
-                                   int, int, int, float, int, cudaStream_t) = {
+                                   int, int, int, float, int, int,
+                                   cudaStream_t) = {
       launch_wgmma<1>, launch_wgmma<2>, launch_wgmma<3>, launch_wgmma<4>,
       launch_wgmma<5>, launch_wgmma<6>, launch_wgmma<7>, launch_wgmma<8>};
   return by_width[(D + 15) / 16 - 1](a, maps, lse, dvec, B, H, Hkv, Sq, Sk,
-                                     D, scale, causal, stream);
+                                     D, scale, causal, q_offset, stream);
 }
 
 }  // namespace
@@ -1009,6 +1029,8 @@ int launch_bf16(const Operands& a, const float* lse, float* dvec, int B,
 // position, d], each through the three strides given for it (in elements),
 // d with unit stride.  `lse` is the forward's float32 [B, H, Sq] log-sum-exp
 // (contiguous); `dvec` float32 [B, H, Sq] scratch that receives D.
+// `q_offset` >= 0 is the position of query row 0, as the forward takes it,
+// and comes last for the same reason.
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, long long sq_b, long long sq_h, long long sq_s,
     const void* k, long long sk_b, long long sk_h, long long sk_s,
@@ -1019,9 +1041,10 @@ extern "C" int flash_attention_bwd_launch(
     long long sdk_b, long long sdk_h, long long sdk_s, void* dv,
     long long sdv_b, long long sdv_h, long long sdv_s, const void* lse,
     void* dvec, int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
-    int causal, void* stream) {
+    int causal, void* stream, int q_offset) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
-      D < 1 || D > DMAX || B * H > 65535 || (dtype != 0 && dtype != 1))
+      D < 1 || D > DMAX || B * H > 65535 || q_offset < 0 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Operands a{q,
                    k,
@@ -1043,6 +1066,8 @@ extern "C" int flash_attention_bwd_launch(
   float* rowdot = static_cast<float*>(dvec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(a, l, rowdot, B, H, Hkv, Sq, Sk, D, scale, causal, s);
-  return launch_bf16(a, l, rowdot, B, H, Hkv, Sq, Sk, D, scale, causal, s);
+    return launch_f32(a, l, rowdot, B, H, Hkv, Sq, Sk, D, scale, causal,
+                      q_offset, s);
+  return launch_bf16(a, l, rowdot, B, H, Hkv, Sq, Sk, D, scale, causal,
+                     q_offset, s);
 }

@@ -16,9 +16,12 @@ goes through :class:`FlashAttention`, the port of the JAX package's
 saves ``q, k, v, out, lse``; its backward is the backward kernel
 (``csrc/flash_attention_bwd.cu``) on the card and ``attention_bwd_ref`` on
 the CPU.  Without autograd the call is the serve path's launch, which
-writes no lse.  ``LAUNCHES`` counts launches by type and kind (a backward
-call, three CUDA kernels, counts once), so a run can show that its path
-went through the kernels.
+writes no lse.  ``q_offset`` places query row ``i`` at position
+``q_offset + i`` in the forward and the backward alike (a context-parallel
+shard of the queries against the whole keys, ``models.attention``); it
+takes no gradient.  ``LAUNCHES`` counts launches by type and kind (a
+backward call, three CUDA kernels, counts once), so a run can show that
+its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -104,7 +107,15 @@ def _strided(tensors):
     return args
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float, with_lse: bool = False):
+def _check_offset(q_offset) -> int:
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) \
+            or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0; got {q_offset!r}")
+    return q_offset
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float, with_lse: bool = False,
+            q_offset: int = 0):
     """The forward kernel; returns o, or (o, lse float32 [B, H, Sq]) with
     ``with_lse``."""
     from repro_torch.kernels.build import library
@@ -125,20 +136,22 @@ def _launch(q, k, v, causal: bool, sm_scale: float, with_lse: bool = False):
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = ([ci] + [vp, ll, ll, ll] * 4
-                       + [ci] * 6 + [ctypes.c_float, ci, vp, vp])
+                       + [ci] * 6 + [ctypes.c_float, ci, vp, vp, ci])
         fn.restype = ci
     rc = fn(DTYPES[q.dtype], *_strided((q, k, v, o)), b, h, hkv, sq, sk, d,
             sm_scale, int(causal), lse.data_ptr() if with_lse else None,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            _check_offset(q_offset))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc} (B={b} H={h} Hkv={hkv} Sq={sq} "
-                           f"Sk={sk} d={d} {q.dtype})")
+                           f"Sk={sk} d={d} q_offset={q_offset} {q.dtype})")
     LAUNCHES[("lse_" if with_lse else "") + _type_name(q)] += 1
     return (o, lse) if with_lse else o
 
 
-def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
+                q_offset: int = 0):
     """The backward kernels; returns (dq, dk, dv) in the operands' type and
     layout."""
     from repro_torch.kernels.build import library
@@ -165,16 +178,17 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = ([ci] + [vp, ll, ll, ll] * 8 + [vp, vp] + [ci] * 6
-                       + [ctypes.c_float, ci, vp])
+                       + [ctypes.c_float, ci, vp, ci])
         fn.restype = ci
     rc = fn(DTYPES[q.dtype], *_strided((q, k, v, o, do, dq, dk, dv)),
             lse.data_ptr(), rowdot.data_ptr(), b, h, hkv, sq, sk, d,
             sm_scale, int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            _check_offset(q_offset))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {rc} (B={b} H={h} Hkv={hkv} Sq={sq} "
-                           f"Sk={sk} d={d} {q.dtype})")
+                           f"Sk={sk} d={d} q_offset={q_offset} {q.dtype})")
     LAUNCHES["backward_" + _type_name(q)] += 1
     return dq, dk, dv
 
@@ -192,19 +206,19 @@ class FlashAttention(torch.autograd.Function):
     versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, backend: str):
+    def forward(ctx, q, k, v, causal: bool, backend: str, q_offset: int = 0):
         b, h, sq, d = q.shape
         hkv = k.shape[1]
         if backend == "cuda":
             out, lse = _launch(q, k, v, causal, 1.0 / d ** 0.5,
-                               with_lse=True)
+                               with_lse=True, q_offset=q_offset)
         else:
             out, lse = attention_fwd_ref(_flat(q), _flat(k), _flat(v),
                                          q_heads=h, kv_heads=hkv,
-                                         causal=causal)
+                                         causal=causal, q_offset=q_offset)
             out, lse = out.reshape(b, h, sq, d), lse.reshape(b, h, sq)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.backend = causal, backend
+        ctx.causal, ctx.backend, ctx.q_offset = causal, backend, q_offset
         return out
 
     @staticmethod
@@ -214,15 +228,15 @@ class FlashAttention(torch.autograd.Function):
         hkv, sk = k.shape[1], k.shape[2]
         if ctx.backend == "cuda":
             dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, ctx.causal,
-                                     1.0 / d ** 0.5)
+                                     1.0 / d ** 0.5, q_offset=ctx.q_offset)
         else:
             dq, dk, dv = attention_bwd_ref(
                 _flat(q), _flat(k), _flat(v), _flat(out),
                 lse.reshape(b * h, sq), _flat(dout), q_heads=h,
-                kv_heads=hkv, causal=ctx.causal)
+                kv_heads=hkv, causal=ctx.causal, q_offset=ctx.q_offset)
             dq = dq.reshape(b, h, sq, d)
             dk, dv = dk.reshape(b, hkv, sk, d), dv.reshape(b, hkv, sk, d)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -232,11 +246,13 @@ def flash_attention(
     *,
     causal: bool = True,
     backend: str = "auto",
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Attention ``softmax(q k^T / sqrt(d)) v`` over ``[B, H, S, d]``
     tensors, query head ``h`` reading KV head ``h // (H / Hkv)``; output in
     q's type.  Causal masking is top-left (query position >= key
-    position).  Strided views (unit stride along ``d``) go in uncopied.
+    position), query row ``i`` at position ``q_offset + i``.  Strided
+    views (unit stride along ``d``) go in uncopied.
     The kernel fixes its own tiles and masks ragged edges, so no length has
     to divide them.  Differentiable: under autograd the call goes through
     :class:`FlashAttention`.
@@ -248,11 +264,12 @@ def flash_attention(
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     backend = resolve_backend(backend, q)
+    q_offset = _check_offset(q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, backend)
+        return FlashAttention.apply(q, k, v, causal, backend, q_offset)
     if backend == "cuda":
-        return _launch(q, k, v, causal, 1.0 / d ** 0.5)
+        return _launch(q, k, v, causal, 1.0 / d ** 0.5, q_offset=q_offset)
     out = attention_ref(q.reshape(b * h, sq, d), k.reshape(b * hkv, sk, d),
                         v.reshape(b * hkv, sk, d), q_heads=h, kv_heads=hkv,
-                        causal=causal)
+                        causal=causal, q_offset=q_offset)
     return out.reshape(b, h, sq, d)

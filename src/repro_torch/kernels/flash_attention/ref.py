@@ -6,7 +6,9 @@ The causal mask is the Pallas kernel's top-left one (query position >= key
 position), which is also what the CUDA kernels compute.  The JAX package's
 ``attention_ref`` aligns it bottom-right (``tril(k=Sk-Sq)``) instead; the two
 agree whenever ``Sq == Sk``, the only case any path of either package
-reaches (ROADMAP.md, Queue 3).
+reaches (ROADMAP.md, Queue 3).  ``q_offset`` places query row ``i`` at
+position ``q_offset + i``, as the JAX package's ``_tile_scores`` does for a
+context-parallel shard of the queries; it takes no gradient.
 
 The backward follows ``_flash_bwd_impl`` (src/repro/models/attention.py),
 the custom VJP the JAX model trains through, on whole ``[Sq, Sk]`` matrices
@@ -30,13 +32,13 @@ def _expand(t: torch.Tensor, q_heads: int, kv_heads: int) -> torch.Tensor:
         group, dim=1).reshape(-1, s, d).to(torch.float32)
 
 
-def _scores(q, k, *, q_heads, kv_heads, causal, sm_scale):
+def _scores(q, k, *, q_heads, kv_heads, causal, sm_scale, q_offset=0):
     """Scaled float32 scores [B*H, Sq, Sk], masked ones at -1e30."""
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
                      _expand(k, q_heads, kv_heads)) * sm_scale
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None]
+        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
         s = torch.where((qpos >= kpos)[None], s,
                         torch.tensor(-1e30, device=q.device))
@@ -52,11 +54,12 @@ def attention_ref(
     kv_heads: int,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     s = _scores(q, k, q_heads=q_heads, kv_heads=kv_heads, causal=causal,
-                sm_scale=sm_scale)
+                sm_scale=sm_scale, q_offset=q_offset)
     probs = torch.softmax(s, dim=-1)
     out = torch.einsum("bqk,bkd->bqd", probs, _expand(v, q_heads, kv_heads))
     return out.to(q.dtype)
@@ -64,14 +67,14 @@ def attention_ref(
 
 def attention_fwd_ref(q, k, v, *, q_heads: int, kv_heads: int,
                       causal: bool = True,
-                      sm_scale: Optional[float] = None):
+                      sm_scale: Optional[float] = None, q_offset: int = 0):
     """:func:`attention_ref` and each row's log-sum-exp of the scaled
     scores (natural log, float32 ``[B*H, Sq]``): the residual the backward
     recomputes the probabilities from, as ``_flash_fwd`` saves it."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     s = _scores(q, k, q_heads=q_heads, kv_heads=kv_heads, causal=causal,
-                sm_scale=sm_scale)
+                sm_scale=sm_scale, q_offset=q_offset)
     lse = torch.logsumexp(s, dim=-1)
     out = torch.einsum("bqk,bkd->bqd", torch.exp(s - lse[..., None]),
                        _expand(v, q_heads, kv_heads))
@@ -80,7 +83,7 @@ def attention_fwd_ref(q, k, v, *, q_heads: int, kv_heads: int,
 
 def attention_bwd_ref(q, k, v, out, lse, dout, *, q_heads: int,
                       kv_heads: int, causal: bool = True,
-                      sm_scale: Optional[float] = None):
+                      sm_scale: Optional[float] = None, q_offset: int = 0):
     """(dq, dk, dv) of attention at ``q, k, v`` for the output gradient
     ``dout``, from the forward's ``out`` and ``lse`` (``[B*H, Sq]``), in the
     operands' types; the layouts of :func:`attention_ref`."""
@@ -88,7 +91,7 @@ def attention_bwd_ref(q, k, v, out, lse, dout, *, q_heads: int,
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     f32 = torch.float32
     s = _scores(q, k, q_heads=q_heads, kv_heads=kv_heads, causal=causal,
-                sm_scale=sm_scale)
+                sm_scale=sm_scale, q_offset=q_offset)
     p = torch.exp(s - lse.to(f32)[..., None])
     do = dout.to(f32)
     rowdot = (do * out.to(f32)).sum(-1)                   # D [B*H, Sq]

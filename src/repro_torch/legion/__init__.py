@@ -22,7 +22,9 @@ The port of ``repro.legion``, this slice's modules:
 - roofline: finite-bandwidth sweeps — the stall knee, the paper's HBM
             budget, counted-vs-analytic stall cross-validation
 
-``ShardedExecutor`` waits for a later slice (ROADMAP.md, Queue 1).
+``ShardedExecutor`` spreads a plan's Legion axis over several devices
+(``legion_rules`` of ``repro_torch.distributed.sharding``), one grouped
+bitlinear launch per shard.
 """
 from repro_torch.legion.latency import (
     CycleBreakdown,
@@ -58,6 +60,7 @@ from repro_torch.legion.machine import (
     Machine,
     PipelinedExecutor,
     RunReport,
+    ShardedExecutor,
     prepare_context,
     run_assignment_loop,
     validate_options,
@@ -129,6 +132,7 @@ __all__ = [
     "ServeBatchSpec",
     "ServeMixedSpec",
     "ServeStepSpec",
+    "ShardedExecutor",
     "StageValidation",
     "SweepPoint",
     "TrafficTotals",

@@ -25,8 +25,9 @@ core grouping):
   (for CPU sessions, their plain versions) on strided views of them, and
   the int32 accumulator stays on the device until the stage ends.  At
   kernel granularity an integer stage without +ZTB launches the bitlinear
-  kernel once, for all of its assignments' slices together.  (The
-  JAX package's ``ShardedExecutor`` waits for a later slice of the port.)
+  kernel once, for all of its assignments' slices together.
+  :class:`ShardedExecutor` spreads a plan's **Legion axis** over several
+  devices, each shard's Legions as one grouped bitlinear launch at bits 8.
 
 ``Machine(cfg).run(plan_or_workload)`` returns a :class:`RunReport` merging
 outputs, measured bytes, counted cycles, and (for workload runs) the
@@ -664,6 +665,160 @@ class InProcessExecutor(ExecutorBackend):
     def execute(self, ctx: ExecContext,
                 instruments: Sequence[object]) -> np.ndarray:
         return run_assignment_loop(ctx, instruments, compute=True)
+
+
+class ShardedExecutor(ExecutorBackend):
+    """Executes a plan's Legion axis device-parallel.
+
+    The port of the JAX package's ``ShardedExecutor``: assignments are
+    grouped per Legion in ``(round, legion)`` order, and the Legion axis
+    is spread over ``nshard = min(len(devices), len(legions))`` devices
+    by :func:`repro_torch.distributed.sharding.legion_rules` (every other
+    axis local), each shard holding ``l_pad / nshard`` Legions of up to
+    ``rmax`` round slots, as the JAX executor stacks them.  Each shard's
+    ``[l, r, M, K] @ [l, r, K, N]`` integer product (or a shared ``[M, K]``
+    x) runs as one grouped bitlinear launch at bits 8 on its device
+    (:func:`repro_torch.kernels.dense_grouped_tile_gemm`), the plain
+    version on a CPU device; a shard whose Legions are all padding has
+    nothing to multiply and launches nothing.  Integer accumulation is
+    associative, so outputs are **bit-exact** with
+    :class:`InProcessExecutor`; ZTB-gated windows are zeroed in the
+    shard's copy of the weights, reproducing the skip semantics.
+
+    Instrument events (traffic/cycles) come from the same shared walk as
+    the in-process path (``run_assignment_loop(..., compute=False)``), so
+    cross-validation against ``simulate()`` is backend-independent.
+
+    ``devices`` are the shards' devices (``["cpu"] * 4`` runs four shards
+    on the CPU); ``None`` is every CUDA device and raises without a card.
+    Where the JAX executor refuses any ``kernel_backend`` but "reference"
+    (its product is one XLA matmul, not the tile kernels), here the
+    product *is* the kernel: the session's resolved kernel backend must be
+    the one every shard's device takes ("cuda" for a CUDA device,
+    "reference" for the CPU), so a kernel is never traded for its plain
+    version (ROADMAP.md, Queue 3, port note 12).
+    """
+
+    name = "sharded"
+
+    def __init__(self, *, devices: Optional[Sequence[DeviceLike]] = None,
+                 axis: str = "legion") -> None:
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device is available for ShardedExecutor(); "
+                    "pass devices=['cpu', ...] to shard on the CPU")
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("ShardedExecutor needs at least one device")
+        self.axis = axis
+        self.devices_used = 0      # set per execute()
+
+    # ------------------------------------------------------------------ #
+    def execute(self, ctx: ExecContext,
+                instruments: Sequence[object]) -> np.ndarray:
+        if ctx.granularity != "window":
+            raise ValueError(
+                "ShardedExecutor executes the window (psum accumulator) "
+                f"loop only; granularity={ctx.granularity!r}"
+            )
+        if not ctx.int_path:
+            raise ValueError(
+                "ShardedExecutor guarantees bit-exactness via associative "
+                "int32 accumulation; float operands need InProcessExecutor"
+            )
+        if ctx.emulate_cores and ctx.books:
+            raise ValueError(
+                "ShardedExecutor cannot reproduce per-core ZTB gating "
+                "(emulate_cores with ZeroTileBooks may exclude non-zero "
+                "tiles); use InProcessExecutor"
+            )
+        for dev in self.devices:
+            want = "cuda" if dev.type == "cuda" else "reference"
+            if ctx.kernel_backend != want:
+                raise ValueError(
+                    f"ShardedExecutor runs each shard's product on its own "
+                    f"device: {dev} takes kernel_backend={want!r}, the "
+                    f"session resolved {ctx.kernel_backend!r}"
+                )
+        # accounting walk: the same event stream as the in-process path
+        run_assignment_loop(ctx, instruments, compute=False)
+        return self._compute(ctx)
+
+    # ------------------------------------------------------------------ #
+    def _compute(self, ctx: ExecContext) -> np.ndarray:
+        from repro_torch.distributed.sharding import legion_rules
+        from repro_torch.launch.mesh import abstract_mesh
+        from repro_torch.legion.runtime import _instance_view
+
+        per_legion: Dict[int, List[Assignment]] = {}
+        for a in sorted(ctx.plan.assignments, key=lambda a: (a.round,
+                                                             a.legion)):
+            per_legion.setdefault(a.legion, []).append(a)
+        legions = sorted(per_legion)
+        nshard = max(min(len(self.devices), len(legions)), 1)
+        l_pad = math.ceil(len(legions) / nshard) * nshard
+        rmax = max(len(v) for v in per_legion.values())
+        width = max(a.n_hi - a.n_lo for a in ctx.plan.assignments)
+        k_pad = ctx.k_tiles * ctx.k_window
+        rules = legion_rules(abstract_mesh((nshard,), (self.axis,)),
+                             axis=self.axis)
+        if rules.spec("legion", "round", "m", "k")[0] != self.axis:
+            raise AssertionError(f"legion rules {rules.table}")
+        per = l_pad // nshard             # Legions of one shard
+        shared_x = ctx.x_pad.ndim == 2
+        # the packed modes' integer weights fit int8, the kernel's type
+        w_dtype = (torch.int8 if ctx.mode.backend == BITLINEAR
+                   else ctx.w_pad.dtype)
+
+        accs = []
+        for d in range(nshard):
+            dev = self.devices[d]
+            mine = legions[d * per:(d + 1) * per]
+            slots = [(li * rmax + slot, a)
+                     for li, leg in enumerate(mine)
+                     for slot, a in enumerate(per_legion[leg])]
+            # a shared input matrix broadcasts to every (legion, slot)
+            # inside the grouped product: one copy a shard
+            xs = (ctx.x_pad.to(dev) if shared_x else torch.zeros(
+                (per * rmax, ctx.m, k_pad), dtype=ctx.x_pad.dtype,
+                device=dev))
+            ws = torch.zeros((per * rmax, k_pad, width), dtype=w_dtype,
+                             device=dev)
+            for i, a in slots:
+                if not shared_x:
+                    xs[i] = _instance_view(ctx.x_pad, a.instance, 2)
+                wsl = ws[i, :, :a.n_hi - a.n_lo]
+                wsl.copy_(_instance_view(ctx.w_pad, a.instance,
+                                         2)[:, a.n_lo:a.n_hi])
+                book = ctx.books[a.instance] if ctx.books else None
+                if book is not None:
+                    # reproduce the skip semantics exactly: a gated window
+                    # contributes nothing, even if the caller's book gates
+                    # tiles that are not actually zero
+                    for (_j, lo, hi) in ctx.tiles_for(a):
+                        gtile = lo // ctx.n_tile
+                        for k in range(ctx.k_tiles):
+                            if ctx.window_skipped(book, k, gtile):
+                                wsl[k * ctx.k_window:(k + 1) * ctx.k_window,
+                                    lo - a.n_lo:hi - a.n_lo] = 0
+            acc = torch.zeros((per * rmax, ctx.m, width), dtype=torch.int32,
+                              device=dev)
+            if slots:
+                kernels.dense_grouped_tile_gemm(
+                    xs, ws, acc, [(i, 0, width) for i, _ in slots])
+            accs.append((slots, acc))
+
+        self.devices_used = nshard
+        out = torch.zeros((ctx.count, ctx.m, ctx.n), dtype=torch.int32)
+        for slots, acc in accs:
+            host = acc.cpu()
+            for i, a in slots:
+                out[a.instance, :, a.n_lo:a.n_hi] = \
+                    host[i, :, :a.n_hi - a.n_lo]
+        return out.numpy()
 
 
 class PipelinedExecutor(ExecutorBackend):

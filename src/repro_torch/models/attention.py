@@ -5,16 +5,21 @@ The port of ``repro.models.attention``: the einsum path for sequences up to
 the JAX package runs its chunked XLA twin of the flash kernel
 (``_flash_ref``) and the port calls
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention`: the flash
-kernel on the card, its plain version on the CPU.  The context-parallel
-flash (``_context_parallel_flash``, a mesh over the sequence) is not
-ported (ROADMAP.md).
+kernel on the card, its plain version on the CPU.  Under sharding rules
+that put the sequence on a mesh axis (``make_rules`` for the train and
+prefill cells of the attention families), the flash path is
+context-parallel (``_context_parallel_flash``): each rank along that axis
+attends from its shard of the queries, at their global positions, to the
+whole keys and values, and the shards' outputs are gathered.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import active_rules
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import (
     apply_rope, dense, dense_init, rms_norm, rope_angles,
@@ -56,6 +61,65 @@ def _project_qkv(p, cfg, x, positions):
     return q, k, v
 
 
+class _GatherSeq(torch.autograd.Function):
+    """The query shards' outputs all-gathered along the sequence (dim 1).
+    Every rank goes on with the same replicated activations, so each holds
+    the whole output gradient; the backward keeps this rank's rows, the
+    gradient of its shard (an all-gather's own backward would add up the
+    ranks' identical copies)."""
+
+    @staticmethod
+    def forward(ctx, local, group, ranks: int, rank: int):
+        parts = [torch.empty_like(local) for _ in range(ranks)]
+        dist.all_gather(parts, local.contiguous(), group=group)
+        ctx.rows = (rank * local.shape[1], (rank + 1) * local.shape[1])
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, hi = ctx.rows
+        return grad[:, lo:hi], None, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity on an operand replicated over the group whose use
+    differs by rank (a query shard, or K / V seen from one shard); the
+    backward sums its gradient over the group, as the transpose of the
+    JAX package's replicated ``shard_map`` in-spec does."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _context_parallel_flash(q, k, v, *, causal: bool, rules):
+    """Context parallelism: the queries shard over the mesh axis that the
+    rules give the sequence, K/V replicate (the paper's KV multicast).
+    Each rank runs the flash kernel on its query slice with the position
+    offset ``rank * s_local`` against the whole K and V, so the causal
+    mask is the whole sequence's, and the shards' outputs are
+    all-gathered.  q [B,S,H,hd]; k/v [B,S,Hkv,hd], the same on every rank
+    of the axis."""
+    seq_ax = rules.table["seq"]
+    msize = rules.mesh.shape[seq_ax] if isinstance(seq_ax, str) else 1
+    group, rank = rules.axis_group(seq_ax, q.device.type)
+    s_local = q.shape[1] // msize
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        q, k, v = (_SumGrad.apply(t, group) for t in (q, k, v))
+    qs = q[:, rank * s_local:(rank + 1) * s_local]
+    out = flash_attention(qs.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal,
+                          q_offset=rank * s_local)
+    return _GatherSeq.apply(out.transpose(1, 2), group, msize, rank)
+
+
 # Sequences at or below this length use the plain einsum path; longer
 # self-attention takes the flash path.
 FLASH_THRESHOLD = 2048
@@ -69,6 +133,13 @@ def _sdpa(q, k, v, *, causal: bool, q_offset=None, kv_len=None):
     if (q.shape[1] > FLASH_THRESHOLD and q.shape[1] == k.shape[1]
             and kv_len is None and q.shape[1] % 1024 == 0
             and k.shape[1] % 512 == 0):
+        rules = active_rules()
+        if rules is not None and rules.table.get("seq") is not None:
+            seq_ax = rules.table["seq"]
+            msize = rules.mesh.shape.get(seq_ax, 1)
+            if q.shape[1] % (msize * 128) == 0:
+                return _context_parallel_flash(q, k, v, causal=causal,
+                                               rules=rules)
         # [B,S,H,hd] -> [B,H,S,hd] views; the kernel reads them uncopied
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal)

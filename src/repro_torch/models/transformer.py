@@ -3,7 +3,10 @@
 
 The port of ``repro.models.transformer``: the JAX package's ``lax.scan``
 over layers is a Python loop here, and its sharding constraints (no-ops on
-one device) are gone.  The two frontends are stubs, as in JAX: an encoder
+one device) are gone: the rules of ``repro_torch.distributed.sharding`` are
+read where the port acts on them, by the context-parallel attention
+(``attention._context_parallel_flash``).  The two frontends are stubs, as
+in JAX: an encoder
 takes precomputed frame embeddings, a VLM precomputed patch embeddings
 prepended to its text.
 """

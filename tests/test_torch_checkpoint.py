@@ -84,6 +84,42 @@ def test_roundtrip_bf16_and_namedtuples(tmp_path):
     _assert_same(plain, tree_leaves(state))
 
 
+def test_compressed_state_with_ef_converts_and_roundtrips(tmp_path):
+    """A compressed TrainState of the JAX package (error-feedback state
+    ``ef``, float32 like the params, non-zero) converts with its ``ef``,
+    and round-trips through the port's Checkpointer bit for bit; the JAX
+    package restores the port's files, whose manifest and structure are
+    the ones it writes itself."""
+    cfg = reduced(get_config("bitnet-1.58b"))
+    opt = JaxAdamW(lr=1e-3)
+    jst = jax_init_state(jax_build(cfg), opt, jax.random.PRNGKey(4),
+                         compressed=True)
+    rng = np.random.default_rng(4)
+    jst = jst._replace(ef=jax.tree.map(
+        lambda e: jnp.asarray(rng.standard_normal(e.shape), jnp.float32)
+        * 1e-3, jst.ef))
+    state = train_state_from_jax(jax.tree.map(np.asarray, jst),
+                                 device="cpu")
+    assert state.ef is not None
+    assert state.ef["embed"]["tokens"].dtype == torch.float32
+    _assert_same(state, jax.tree.leaves(jst))
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    ck = Checkpointer(str(tmp_path / "port"))
+    ck.save(3, state, blocking=True)
+    _, back = ck.restore(example=state, device="cpu")
+    assert isinstance(back, TrainState) and back.ef is not None
+    _assert_same(back, tree_leaves(state))
+    JaxCheckpointer(str(tmp_path / "jax")).save(3, jst, blocking=True)
+    _, from_port = JaxCheckpointer(str(tmp_path / "port")).restore(
+        example=jst)
+    _assert_same(state, jax.tree.leaves(from_port))
+    for name in ("manifest.json", "structure.json"):
+        assert json.loads((tmp_path / "port" / "step_00000003" /
+                           name).read_text()) == json.loads(
+            (tmp_path / "jax" / "step_00000003" / name).read_text())
+
+
 def test_latest_pointer_and_gc(tmp_path):
     ck = Checkpointer(str(tmp_path), keep=2)
     for s in (1, 2, 3, 4):

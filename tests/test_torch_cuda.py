@@ -756,6 +756,94 @@ def test_flash_gradient_flows_through_the_kernels(card, dtype):
         torch.testing.assert_close(t.grad.float(), r.grad, **tol)
 
 
+# --------------------------------------------------------------------------- #
+# flash with a query offset: a context-parallel shard of the queries (query
+# row i at position q_offset + i) against the whole keys, forward and
+# backward, against the plain versions at the same offset; and the shards
+# of a sequence joined against the whole-sequence call
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,sq,sk,d,q_offset,causal", [
+    (4, 4, 64, 256, 32, 192, True), (4, 2, 100, 300, 112, 37, True),
+    (8, 1, 128, 512, 64, 128, True), (2, 2, 77, 150, 128, 73, True),
+    (4, 4, 64, 256, 80, 100, False), (2, 2, 50, 40, 16, 5, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_offset_kernels_match_plain_version(card, h, hkv, sq, sk, d,
+                                                  q_offset, causal, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_ref,
+    )
+
+    q, k, v = _bshd_views(1, h, hkv, sq, sk, d, dtype, h + sq + q_offset,
+                          card)
+    do = _bshd_views(1, h, h, sq, sq, d, dtype, 11 + d, card)[0]
+    scale = 1.0 / d ** 0.5
+    serve = fa._launch(q, k, v, causal, scale, q_offset=q_offset)
+    o, lse = fa._launch(q, k, v, causal, scale, with_lse=True,
+                        q_offset=q_offset)
+    grads = fa._launch_bwd(q, k, v, o, lse, do, causal, scale,
+                           q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert torch.equal(serve, o)
+    flat = lambda t: t.float().reshape(-1, t.shape[2], d)  # noqa: E731
+    kw = dict(q_heads=h, kv_heads=hkv, causal=causal, q_offset=q_offset)
+    o_ref, lse_ref = attention_fwd_ref(flat(q), flat(k), flat(v), **kw)
+    fwd_tol = (dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32
+               else dict(rtol=8e-3, atol=2e-5))
+    torch.testing.assert_close(flat(o), o_ref, **fwd_tol)
+    torch.testing.assert_close(lse.reshape(-1, sq), lse_ref, rtol=2e-4,
+                               atol=2e-5)
+    want = attention_bwd_ref(flat(q), flat(k), flat(v), flat(o), lse_ref,
+                             flat(do), **kw)
+    tol = (dict(rtol=2e-3, atol=2e-4) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got.float().reshape(ref.shape), ref,
+                                   **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shards", [(torch.float32, 4),
+                                          (torch.bfloat16, 4)])
+def test_flash_offset_shards_join_to_the_whole_sequence(card, dtype, shards):
+    """A causal sequence of 1024 queries cut into shards of 256 at offsets
+    0, 256, 512, 768: each shard's output, lse and dq equal the
+    whole-sequence call's rows bit for bit (256 is a multiple of both
+    kernels' query tiles, so every block computes the same rows in the
+    same order), and the shards' dk and dv add up to the whole call's
+    within the type's backward tolerance (each shard rounds its own sum
+    to the type once)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    h, hkv, s, d = 4, 2, 1024, 64
+    q, k, v = _bshd_views(1, h, hkv, s, s, d, dtype, 5, card)
+    do = _bshd_views(1, h, h, s, s, d, dtype, 6, card)[0]
+    scale = 1.0 / d ** 0.5
+    o, lse = fa._launch(q, k, v, True, scale, with_lse=True)
+    dq, dk, dv = fa._launch_bwd(q, k, v, o, lse, do, True, scale)
+    n = s // shards
+    dk_sum = torch.zeros_like(dk, dtype=torch.float32)
+    dv_sum = torch.zeros_like(dv, dtype=torch.float32)
+    for r in range(shards):
+        rows = slice(r * n, (r + 1) * n)
+        qs, dos = q[:, :, rows], do[:, :, rows]
+        os_, ls = fa._launch(qs, k, v, True, scale, with_lse=True,
+                             q_offset=r * n)
+        assert torch.equal(os_, o[:, :, rows])
+        assert torch.equal(ls, lse[:, :, rows])
+        gq, gk, gv = fa._launch_bwd(qs, k, v, os_, ls, dos, True, scale,
+                                    q_offset=r * n)
+        assert torch.equal(gq, dq[:, :, rows])
+        dk_sum += gk.float()
+        dv_sum += gv.float()
+    tol = (dict(rtol=2e-3, atol=2e-4) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(dk_sum, dk.float(), **tol)
+    torch.testing.assert_close(dv_sum, dv.float(), **tol)
+
+
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_grad(card):
     """The SSD, block-sparse and bitlinear CUDA routes have no backward: a

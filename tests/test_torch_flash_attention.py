@@ -217,3 +217,70 @@ def test_function_only_under_autograd():
                   v.reshape(2, 64, 8), q_heads=4, kv_heads=2
                   ).square().sum().backward()
     np.testing.assert_allclose(q.grad.numpy(), want_q.grad.numpy(), **GRAD)
+
+
+@pytest.mark.parametrize("q_offset,causal", [(0, True), (64, True),
+                                              (192, True), (37, True),
+                                              (100, False)])
+def test_query_offset_against_jax(q_offset, causal):
+    """A shard of 64 queries at positions q_offset.. against 256 keys: the
+    plain forward (with its lse), the plain backward and the flash
+    Function's CPU path under autograd against ``_flash_ref(...,
+    q_offset=...)`` and its ``jax.vjp`` (q_offset takes no gradient), at
+    flash's float32 tolerances."""
+    b, sq, sk, h, hkv, d = 1, 64, 256, 4, 2, 16
+    rng = np.random.default_rng(q_offset + causal)
+    q, g = (rng.standard_normal((b, sq, h, d)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, vjp = jax.vjp(lambda *a: _flash_ref(*a, causal=causal, bq=32,
+                                             bk=32, q_offset=q_offset),
+                       jq, jk, jv)
+    dq, dk, dv = vjp(jnp.asarray(g))
+    _, jlse = _flash_fwd_impl(jq, jk, jv, q_offset, causal, 32, 32)
+
+    def flat(a):           # [B, S, heads, d] -> [B*heads, S, d]
+        return torch.from_numpy(a).transpose(1, 2).reshape(-1, a.shape[1], d)
+
+    kw = dict(q_heads=h, kv_heads=hkv, causal=causal, q_offset=q_offset)
+    o, lse = attention_fwd_ref(flat(q), flat(k), flat(v), **kw)
+    np.testing.assert_allclose(
+        o.reshape(b, h, sq, d).transpose(1, 2).numpy(), np.asarray(out),
+        **F32)
+    np.testing.assert_allclose(lse.reshape(b, h, sq).numpy(),
+                               np.asarray(jlse).reshape(b, h, sq), **F32)
+    plain = attention_ref(flat(q), flat(k), flat(v), **kw)
+    np.testing.assert_allclose(plain.numpy(), o.numpy(), **F32)
+    grads = attention_bwd_ref(flat(q), flat(k), flat(v), o, lse, flat(g),
+                              **kw)
+    for got, want in zip(grads, (dq, dk, dv)):
+        np.testing.assert_allclose(
+            got.reshape(b, -1, got.shape[1], d).transpose(1, 2).numpy(),
+            np.asarray(want), **GRAD)
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    to = ops.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                             tv.transpose(1, 2), causal=causal,
+                             q_offset=q_offset)
+    to.transpose(1, 2).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(to.detach().transpose(1, 2).numpy(),
+                               np.asarray(out), **F32)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), (dq, dk, dv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
+
+
+def test_query_offset_shards_join_to_the_whole_sequence():
+    """Four query shards at offsets 0, 64, 128, 192 of a causal 256-token
+    sequence, each against the whole keys, give the whole call's output
+    rows; the wrapper refuses an offset that is not an int >= 0."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 256, 256, 16, 5))
+    whole = ops.flash_attention(q, k, v, causal=True)
+    parts = [ops.flash_attention(q[:, :, r:r + 64], k, v, causal=True,
+                                 q_offset=r) for r in range(0, 256, 64)]
+    np.testing.assert_allclose(torch.cat(parts, dim=2).numpy(),
+                               whole.numpy(), **F32)
+    for bad in (-1, True, 1.5):
+        with pytest.raises(ValueError, match="q_offset"):
+            ops.flash_attention(q, k, v, q_offset=bad)

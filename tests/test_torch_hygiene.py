@@ -50,6 +50,12 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.train.fault_tolerance\n"
         "from repro_torch.train import AdamW, Checkpointer, TrainingRunner\n"
         "from repro_torch.convert import train_state_from_jax\n"
+        "import repro_torch.distributed, repro_torch.launch\n"
+        "import repro_torch.distributed.collectives\n"
+        "import repro_torch.distributed.pipeline\n"
+        "from repro_torch.legion import ShardedExecutor\n"
+        "from repro_torch.train.train_loop import "
+        "build_compressed_train_step\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -68,13 +74,15 @@ def _no_card():
                                    "LegionServeBackend", "params_from_jax",
                                    "init_train_state", "build_train_step",
                                    "train_state_from_jax",
-                                   "Checkpointer.restore", "TrainingRunner"])
+                                   "Checkpointer.restore", "TrainingRunner",
+                                   "ShardedExecutor", "init_process_group"])
 def test_entry_points_raise_without_device_and_card(entry, tmp_path):
     _no_card()
     import repro_torch.configs as configs
     from repro_torch.convert import params_from_jax, train_state_from_jax
     from repro_torch.core import dlegion
-    from repro_torch.legion import Machine
+    from repro_torch.distributed import init_process_group
+    from repro_torch.legion import Machine, ShardedExecutor
     from repro_torch.models import build_model
     from repro_torch.serve import LegionServeBackend
     from repro_torch.train import (
@@ -102,9 +110,33 @@ def test_entry_points_raise_without_device_and_card(entry, tmp_path):
         "Checkpointer.restore": lambda: Checkpointer(str(tmp_path)).restore(),
         "TrainingRunner": lambda: TrainingRunner(
             None, None, None, Checkpointer(str(tmp_path))),
+        # every card; and an NCCL group, which needs one
+        "ShardedExecutor": lambda: ShardedExecutor(),
+        "init_process_group": lambda: init_process_group(
+            str(tmp_path / "store"), 0, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def test_distributed_code_catches_nothing():
+    """The distributed slice's modules hold no ``except``: a failed kernel
+    build or launch, or a collective that times out, raises through them
+    instead of being caught and carried past."""
+    import inspect
+
+    from repro_torch.legion.machine import ShardedExecutor
+    from repro_torch.models import attention
+
+    sources = [p.read_text() for d in ("distributed", "launch")
+               for p in sorted((PORT / d).glob("*.py"))]
+    sources += [inspect.getsource(ShardedExecutor),
+                inspect.getsource(attention._context_parallel_flash),
+                inspect.getsource(attention._GatherSeq),
+                inspect.getsource(attention._SumGrad)]
+    assert len(sources) >= 9
+    for src in sources:
+        assert not re.search(r"^\s*except\b", src, re.M)
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
