@@ -1374,24 +1374,12 @@ def ssd_operands(nb, nh, s, n, p, seed):
 
 
 def ssd_bound(nb, nh, s, n, p, chunk, shared_bc):
-    """(bound ms, "bytes" | "operations"): dta, dtx, B, C, y and the
-    terminal state over 3.35 TB/s, against the chunked algorithm's float32
-    multiply-adds over 67 TFLOP/s: the causal half of each score tile C Bᵀ,
-    its product with dtx, the state readout and the state update.  Where B
-    and C are shared by the heads (``shared_bc``), they are read and their
-    score tile computed once per batch."""
-    bc_copies = nb if shared_bc else nb * nh
-    nbytes = 4.0 * (nb * nh * s + 2 * nb * nh * s * p + 2 * bc_copies * s * n
-                    + nb * nh * n * p)
-    scores = per_head = 0
-    for s0 in range(0, s, chunk):
-        q = min(chunk, s - s0)
-        scores += q * (q + 1) // 2 * n
-        per_head += q * (q + 1) // 2 * p + 2 * q * n * p
-    ops = 2.0 * (bc_copies * scores + nb * nh * per_head)
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / F32_OPS_PER_S * 1e3
-    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+    """(bound ms, "bytes" | "operations") of the SSD scan: the package's
+    formula (``repro_torch.kernels.cost.ssd_bound``), which the dry run's
+    cost counter reads too."""
+    from repro_torch.kernels.cost import ssd_bound as bound
+
+    return bound(nb, nh, s, n, p, chunk, shared_bc)
 
 
 def phase_ssd():
@@ -1441,30 +1429,14 @@ def phase_ssd():
     return rows
 
 
-def _pairs(sq, sk, causal, q_offset=0):
-    """The (query, key) pairs a causal call sees, query i at q_offset + i."""
-    return (sum(min(q_offset + i + 1, sk) for i in range(sq)) if causal
-            else sq * sk)
-
-
-def _keys_read(sq, sk, causal, q_offset=0):
-    """The keys a call must read: a causal call whose last query sits at
-    q_offset + sq - 1 reaches only the first min(sk, q_offset + sq)."""
-    return min(sk, q_offset + sq) if causal else sk
-
-
 def flash_bound(b, h, hkv, sq, sk, d, causal, elt, q_offset=0):
-    """(bound ms, "bytes" | "operations"): q, the keys and values the
-    call reaches, and o over 3.35 TB/s against the two products over the
-    unmasked (query, key) pairs at the type's peak (bf16 tensor cores,
-    float32 CUDA cores)."""
-    pairs = _pairs(sq, sk, causal, q_offset)
-    reach = _keys_read(sq, sk, causal, q_offset)
-    nbytes = float(elt) * d * (2 * b * h * sq + 2 * b * hkv * reach)
-    ops = 4.0 * b * h * pairs * d
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) * 1e3
-    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+    """(bound ms, "bytes" | "operations") of a flash forward call:
+    ``repro_torch.kernels.cost.flash_bound`` (q, the keys and values the
+    call reaches, and o over HBM against the two products over the
+    unmasked pairs at the type's peak)."""
+    from repro_torch.kernels.cost import flash_bound as bound
+
+    return bound(b, h, hkv, sq, sk, d, causal, elt, q_offset)
 
 
 def phase_flash():
@@ -2106,19 +2078,12 @@ FLASH_BWD_SHAPES = (
 
 
 def flash_bwd_bound(b, h, hkv, sq, sk, d, causal, elt, q_offset=0):
-    """(bound ms, "bytes" | "operations") of the attention backward: q,
-    out, dout, the lse and the keys and values the call reaches read once,
-    dq, dk and dv (every key's) written once, over 3.35 TB/s, against its
-    five products (s = q k^T, dv, dp, dq, dk) over the unmasked (query,
-    key) pairs at the type's peak."""
-    pairs = _pairs(sq, sk, causal, q_offset)
-    reach = _keys_read(sq, sk, causal, q_offset)
-    nbytes = (float(elt) * d * (4 * b * h * sq + 2 * b * hkv * (reach + sk))
-              + 4.0 * b * h * sq)
-    ops = 10.0 * b * h * pairs * d
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) * 1e3
-    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+    """(bound ms, "bytes" | "operations") of the attention backward:
+    ``repro_torch.kernels.cost.flash_bwd_bound`` (its five products over
+    the unmasked pairs against what it must read and write once)."""
+    from repro_torch.kernels.cost import flash_bwd_bound as bound
+
+    return bound(b, h, hkv, sq, sk, d, causal, elt, q_offset)
 
 
 # Each gradient is also held at the type's rtol with an atol scaled to the
@@ -2745,7 +2710,212 @@ def phase_train():
                               1 - device_ms / untraced_ms)
                           if by_name else None,
                           "top_device_ms": top}})
-    return got
+    # the launch phase's check: the FLOPs of one more step, counted by
+    # torch's FlopCounterMode (the kernels' custom ops by their registered
+    # formulas), after every number above is taken
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, batch)
+        float(m["loss"])
+    return got, {"peak_memory_bytes": peak, "flops": fc.get_total_flops(),
+                 "step_seconds": sum(seconds[1:]) / (steps - 1),
+                 "seq": seq, "batch": 1}
+
+
+# phase launch: the dry run's one-card prediction of phase train's step
+# must hold its peak memory within this share, and count its FLOPs exactly
+LAUNCH_PEAK_RTOL = 0.10
+# the production sweep's cells, run in parallel processes (CPU only); the
+# whole sweep (39 traced cells) took 1,209 s on the card's host, so the
+# phase runs one arch per family, train_4k on one pod plus its first
+# runnable shape across two pods, at full width and at most
+# LAUNCH_MAX_LAYERS layers (Zamba2-7B's train step alone traced 513 s at
+# its 81), plus LAUNCH_FULL_DEPTH_CELL at its full depth, and the whole
+# sweep is run on its own
+# (python -m repro_torch.launch.dryrun --all; PERF.md has its table)
+LAUNCH_FAMILY_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-130m",
+                       "zamba2-7b", "hubert-xlarge", "internvl2-76b")
+LAUNCH_JOBS = 8
+LAUNCH_MAX_LAYERS = 8
+LAUNCH_FULL_DEPTH_CELL = ("qwen3-1.7b", "train_4k", "single")
+# reduced cells (arch, kind, batch) on a fake (2, 2, 2) mesh, traced on
+# fake tensors and run on real CPU tensors: on this host's torch the fake
+# trace must count the allocations the real run makes, its peak within
+# LAUNCH_REDUCED_RTOL (torch's MemTracker's reading of the real run is
+# printed beside it; torch 2.11's reads higher on real tensors too, where
+# torch 2.13's equals the counter's, tests/test_torch_dryrun.py).  The
+# decode batch of 2 splits the KV cache along the sequence, as the
+# production decode cells do
+LAUNCH_REDUCED_CELLS = (("qwen3-1.7b", "train", 8),
+                        ("qwen3-1.7b", "decode", 2),
+                        ("mamba2-130m", "train", 8))
+LAUNCH_REDUCED_RTOL = 0.01
+
+_ONE_CARD_CELL = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_config, shape_by_name
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+shape = shape_by_name("train_4k")
+shape = type(shape)(shape.name, int(sys.argv[2]), int(sys.argv[3]),
+                    shape.kind)
+r = dryrun.run_cell("bitnet-1.58b", "train_4k", "one",
+                    cfg=get_config("bitnet-1.58b"), shape=shape,
+                    mesh=make_host_mesh((1, 1), ("data", "model")))
+print(json.dumps(r))
+"""
+
+_REDUCED_CELL = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+arch, kind, batch, mode = sys.argv[2:6]
+r = dryrun.run_cell(arch, "tiny_" + kind, "tiny",
+                    cfg=reduced(get_config(arch)).replace(remat="block"),
+                    shape=ShapeConfig("tiny_" + kind, 128, int(batch), kind),
+                    mesh=make_host_mesh((2, 2, 2), ("pod", "data", "model")),
+                    fake=mode == "fake")
+print(json.dumps(r["memory_per_device"]))
+"""
+
+
+def _python(*args):
+    return subprocess.Popen([sys.executable, "-c", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _result(proc, what):
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch: {what} failed\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_launch(train_step):
+    """The dry run (repro_torch.launch.dryrun) against the card: (a) its
+    prediction of phase train's step (bitnet-1.58b train_4k cut to batch 1
+    on a one-card (data 1, model 1) mesh, traced on fake tensors in a
+    process of its own) must hold phase train's measured peak memory
+    within LAUNCH_PEAK_RTOL and count exactly the FLOPs that
+    FlopCounterMode counted on one real step; (b) the production cells
+    (16 x 16 and 2 x 16 x 16 meshes, full width, depth cut to
+    LAUNCH_MAX_LAYERS) of one arch per family, and LAUNCH_FULL_DEPTH_CELL
+    at full depth, must each end "ok", or "skipped" with
+    applicable_shapes' reason; (c) the reduced cells' fake peak must
+    equal their real run's, within LAUNCH_REDUCED_RTOL."""
+    from repro_torch.configs import applicable_shapes, get_config
+    from repro_torch.launch import dryrun, roofline
+
+    # (a), the reduced cells (c) and the full-depth cell, in processes of
+    # their own at once
+    t0 = time.perf_counter()
+    one_card = _python(_ONE_CARD_CELL, SRC, str(train_step["seq"]),
+                       str(train_step["batch"]))
+    reduced = {(cell, mode): _python(_REDUCED_CELL, SRC,
+                                     *map(str, cell), mode)
+               for cell in LAUNCH_REDUCED_CELLS for mode in ("fake", "real")}
+    full_out = os.path.join(ROOT, "build", "dryrun_full_depth.json")
+    if os.path.exists(full_out):
+        os.remove(full_out)
+    full = dryrun._cell_process(*LAUNCH_FULL_DEPTH_CELL, full_out, "bf16", 0,
+                                subprocess.PIPE)
+    cell = _result(one_card, "one-card dry run")
+    one_card_s = time.perf_counter() - t0
+    predicted_peak = cell["memory_per_device"]["peak_bytes_per_device"]
+    measured_peak = train_step["peak_memory_bytes"]
+    peak_err = predicted_peak / measured_peak - 1
+    flops_dry, flops_card = cell["per_device"]["flops"], train_step["flops"]
+    step_s = train_step["step_seconds"]
+    emit({"phase": "launch", "check": "one_card",
+          "cell": "bitnet-1.58b|train_4k|1x1 (batch 1)",
+          "predicted_peak_bytes": predicted_peak,
+          "measured_peak_bytes": measured_peak, "peak_rel_err": peak_err,
+          "memory_per_device": cell["memory_per_device"],
+          "flops_dry_run": flops_dry, "flops_flop_counter": flops_card,
+          "predicted_step_s": cell["predicted_step_s"],
+          "t_compute": cell["t_compute"], "t_memory": cell["t_memory"],
+          "bottleneck": cell["bottleneck"], "measured_step_s": step_s,
+          "model_flops": cell["model_flops"],
+          "model_flops_share": cell["model_flops"]
+          / (roofline.PEAK_FLOPS * step_s),
+          "counted_flops_share": flops_card / (roofline.PEAK_FLOPS * step_s),
+          "trace_seconds": one_card_s})
+    if abs(peak_err) > LAUNCH_PEAK_RTOL:
+        raise AssertionError(f"launch: predicted peak {predicted_peak} vs "
+                             f"measured {measured_peak} ({peak_err:+.3f})")
+    if flops_dry != flops_card:
+        raise AssertionError(f"launch: dry-run FLOPs {flops_dry} != "
+                             f"FlopCounterMode's {flops_card}")
+
+    for cell in LAUNCH_REDUCED_CELLS:
+        fake, real = (_result(reduced[cell, m], f"{cell} {m}")
+                      for m in ("fake", "real"))
+        err = fake["peak_bytes_per_device"] / real[
+            "peak_bytes_per_device"] - 1
+        emit({"phase": "launch", "check": "fake_vs_real",
+              "cell": f"{cell[0]}|tiny_{cell[1]}|2x2x2 (reduced, batch "
+                      f"{cell[2]})",
+              "fake_peak_bytes": fake["peak_bytes_per_device"],
+              "real_peak_bytes": real["peak_bytes_per_device"],
+              "real_memtracker_peak_bytes": real["memtracker_peak_bytes"],
+              "peak_rel_err": err})
+        if abs(err) > LAUNCH_REDUCED_RTOL or any(
+                fake[k] != real[k] for k in ("argument_bytes",
+                                             "output_bytes")):
+            raise AssertionError(f"launch: {cell}: fake {fake} vs "
+                                 f"real {real}")
+    full_err = full.communicate(timeout=900)[1]
+    if full.returncode != 0:
+        raise AssertionError(f"launch: full-depth cell failed\n"
+                             f"{full_err[-3000:]}")
+    with open(full_out) as f:
+        full_cell = json.load(f)["|".join(LAUNCH_FULL_DEPTH_CELL)]
+
+    cells = []
+    for arch in LAUNCH_FAMILY_ARCHS:
+        shapes = applicable_shapes(get_config(arch))
+        cells.append((arch, "train_4k", "single"))
+        cells.append((arch, next(s for s in shapes if shapes[s] == "run"),
+                      "multi"))
+    out = os.path.join(ROOT, "build", "dryrun_launch.json")
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    results = dryrun.run_sweep(cells, out, jobs=LAUNCH_JOBS,
+                               max_layers=LAUNCH_MAX_LAYERS,
+                               log=lambda m: None)
+    results = {"|".join(c): results["|".join(c)] for c in cells}
+    sweep_s = time.perf_counter() - t0
+    results["|".join(LAUNCH_FULL_DEPTH_CELL) + " (full depth)"] = full_cell
+    bad = {k: v.get("error", v.get("reason")) for k, v in results.items()
+           if v.get("status") != "ok" and not (
+               v.get("status") == "skipped" and v.get("reason")
+               == applicable_shapes(get_config(k.split("|")[0]))[
+                   k.split("|")[1]])}
+    for key, r in results.items():
+        if r.get("status") != "ok":
+            emit({"phase": "launch", "cell": key, "status": r.get("status"),
+                  "reason": r.get("reason"), "error": r.get("error")})
+            continue
+        emit({"phase": "launch", "cell": key, "status": "ok",
+              **{k: r[k] for k in (
+                  "chips", "hlo_flops", "hlo_bytes", "coll_bytes",
+                  "coll_by_axis", "t_compute", "t_memory", "t_collective",
+                  "bottleneck", "predicted_step_s", "roofline_fraction",
+                  "ssd_route", "layers", "t_trace_s")},
+              "peak_bytes_per_device":
+              r["memory_per_device"]["peak_bytes_per_device"]})
+    emit({"phase": "launch", "sweep_cells": len(cells),
+          "sweep_seconds": sweep_s, "jobs": LAUNCH_JOBS})
+    if bad:
+        raise AssertionError(f"launch: cells not ok: {bad}")
+    return results
 
 
 # full-width BitNet-1.58B through the compressed step: the sequence length
@@ -3106,8 +3276,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_model_launches = run(phase_train_model)
     torch.cuda.empty_cache()
-    train_launches = run(phase_train)
+    train_launches, train_step = run(phase_train)
     torch.cuda.empty_cache()
+    run(phase_launch, train_step)
     from repro_torch.distributed import process_group
 
     # a one-rank NCCL group on the card (NCCL refuses two ranks on one

@@ -20,11 +20,10 @@ turns a spec into DTensor placements (``Shard`` / ``Replicate``) on a
 
 Without an active rule table :func:`constrain` is the identity; with one,
 it redistributes a DTensor to the spec and returns a plain tensor as it
-is.  The port's models do not call it (``models/transformer.py`` says
-why): the rules are read by context-parallel attention
-(``models.attention._context_parallel_flash``), the Legion-parallel
-executor (``legion.machine.ShardedExecutor``) and whoever places
-parameters (:func:`param_shardings`).
+is.  The port's models call it where the JAX models do, so that on
+DTensor parameters (placed by :func:`place_params`, the counterpart of
+``jax.jit``'s ``in_shardings``) their activations take the JAX package's
+layouts; on plain tensors it changes nothing.
 
 Parameter specs are path-regex driven (:func:`param_shardings`): 2-D (fsdp
 x tensor) sharding for large architectures, tensor-parallel for small
@@ -42,7 +41,8 @@ from repro_torch.launch.mesh import MeshSpec, abstract_mesh
 __all__ = [
     "Rules", "Spec", "abstract_mesh", "active_rules", "constrain",
     "constrain_layer_params", "legion_rules", "make_rules",
-    "param_shardings", "spec_for_path", "use_rules",
+    "param_shardings", "place_params", "settle", "spec_for_path",
+    "use_rules",
 ]
 
 # one entry per tensor dimension: a mesh axis, a tuple of them, or None
@@ -124,6 +124,24 @@ def active_rules() -> Optional[Rules]:
     return _ACTIVE.get()
 
 
+def local_extent(x) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(local shape, global offset) of this rank's shard of the DTensor
+    ``x``, from its placements (``Shard`` cuts ``torch.chunk``'s way,
+    mesh dimension after mesh dimension).  In plain integers, so that it
+    works on fake tensors too (DTensor's own helper indexes a tensor)."""
+    shape, start = list(x.shape), [0] * x.ndim
+    coord = x.device_mesh.get_coordinate()
+    for i, pl in enumerate(x.placements):
+        if not pl.is_shard():
+            continue
+        d, n = pl.dim, x.device_mesh.size(i)
+        piece = -(-shape[d] // n)
+        lo = min(coord[i] * piece, shape[d])
+        start[d] += lo
+        shape[d] = min(piece, shape[d] - lo)
+    return tuple(shape), tuple(start)
+
+
 def _is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -144,15 +162,33 @@ def redistribute(x, spec: Spec):
         MeshSpec(names, tuple(mesh.shape)), spec))
 
 
+def settle(x):
+    """A DTensor holding partial sums (a vocab-parallel embedding's
+    lookup, a row-parallel product) reduced to replicated values along
+    those mesh axes; a plain tensor, or a DTensor with no partial
+    placement, as it is."""
+    if not _is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
 def constrain(x, *logical: Optional[str]):
     """Constrain ``x``'s layout by logical axis names: the identity without
-    rules or on a plain tensor, a redistribution of a DTensor."""
+    rules or on a plain tensor, a redistribution of a DTensor (a mesh axis
+    that does not divide its dimension is left out, as for parameters: a
+    decode step's one position stays whole)."""
     rules = _ACTIVE.get()
     if rules is None:
         return x
     if x.ndim != len(logical):
         raise ValueError(f"rank {x.ndim} vs {logical}")
-    return redistribute(x, rules.spec(*logical))
+    if not _is_dtensor(x):
+        return x
+    return redistribute(x, _fit_spec(rules.mesh, tuple(x.shape),
+                                     rules.spec(*logical)))
 
 
 # --------------------------------------------------------------------------- #
@@ -366,3 +402,25 @@ def constrain_layer_params(layer_params, cfg=None, *, fsdp: bool = True):
             spec_for_path(path, tuple(leaf.shape), rules.param_table)))
 
     return _tree_with_paths(assign, layer_params)
+
+
+def place_params(params, mesh: MeshSpec, specs, device_mesh):
+    """``params`` (nested dicts of tensors, each holding the whole leaf)
+    as DTensors on ``device_mesh`` (a ``DeviceMesh`` of ``mesh``), each
+    leaf laid out by its spec in ``specs`` (a tree like
+    :func:`param_shardings`'): every rank keeps its own shard, cut from
+    the leaf it holds, and nothing is sent (every rank must hold the same
+    values, as ranks seeded alike do).  A leaf that is a DTensor already
+    is redistributed to its spec."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(params, dict):
+        return {k: place_params(v, mesh, specs[k], device_mesh)
+                for k, v in params.items()}
+    if params is None:
+        return None
+    if _is_dtensor(params):
+        return redistribute(params, specs)
+    return distribute_tensor(params, device_mesh,
+                             spec_placements(mesh, specs),
+                             src_data_rank=None)

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels.bitlinear.ref import (
     bitlinear_matmul_ref, grouped_tile_gemm_ref,
 )
@@ -62,8 +63,8 @@ def resolve_backend(backend: str, t: torch.Tensor) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
     if backend == "auto":
-        return "cuda" if t.is_cuda else "reference"
-    if backend == "cuda" and not t.is_cuda:
+        return "cuda" if on_card(t) else "reference"
+    if backend == "cuda" and not on_card(t):
         raise ValueError("backend='cuda' needs CUDA tensors; got "
                          f"{t.device}")
     if backend == "reference" and t.is_cuda:
@@ -254,3 +255,25 @@ def tile_gemm(
     """
     return bitlinear_matmul(x_int8, w_packed, bits=bits, backend=backend,
                             out=out)
+
+
+def bitlinear_apply(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    w_scale: torch.Tensor,
+    *,
+    bits: int = 2,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """The full BitLinear serving op: quantize the activations (per-row
+    absmax int8), integer GEMM through :func:`bitlinear_matmul` (the kernel
+    for CUDA tensors, its plain version for CPU tensors), dequantize by the
+    activations' and the weights' scales.
+
+    x float ``[M, K]``, ``w_packed`` as :func:`bitlinear_matmul` takes it,
+    ``w_scale`` the weights' scale -> float ``[M, N]`` in x's type.
+    """
+    s = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0 + 1e-5
+    xq = torch.clamp(torch.round(x / s), -128, 127).to(torch.int8)
+    acc = bitlinear_matmul(xq, w_packed, bits=bits, backend=backend)
+    return acc.to(x.dtype) * (s * w_scale).to(x.dtype)

@@ -15,7 +15,12 @@ goes through :class:`FlashAttention`, the port of the JAX package's
 ``_flash`` custom VJP: its forward also writes each row's log-sum-exp and
 saves ``q, k, v, out, lse``; its backward is the backward kernel
 (``csrc/flash_attention_bwd.cu``) on the card and ``attention_bwd_ref`` on
-the CPU.  Without autograd the call is the serve path's launch, which
+the CPU.  Each launch is a ``torch.library`` custom op
+(``repro_torch::flash_fwd``, ``flash_fwd_lse``, ``flash_bwd``) with a fake
+implementation that allocates what the kernel allocates, a FLOP formula
+(``torch.utils.flop_counter``) for what it issues and a byte formula
+(``BYTES``, read by ``repro_torch.launch.hlo_cost``), so that a traced run
+on fake tensors (the dry run) passes through it.  Without autograd the call is the serve path's launch, which
 writes no lse.  ``q_offset`` places query row ``i`` at position
 ``q_offset + i`` in the forward and the backward alike (a context-parallel
 shard of the queries against the whole keys, ``models.attention``); it
@@ -26,10 +31,12 @@ its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.bitlinear.ops import resolve_backend
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref, attention_fwd_ref, attention_ref,
@@ -126,8 +133,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, with_lse: bool = False,
     if q.dtype == torch.bfloat16:
         _check_tma((("q", q), ("k", k), ("v", v)), "kernel")
     # o in [B, S, H, d] memory order: the attention layer reads it that way
-    o = torch.empty((b, sq, h, d), dtype=q.dtype,
-                    device=q.device).transpose(1, 2)
+    o = _fwd_out(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if o.numel() == 0:
@@ -151,9 +157,10 @@ def _launch(q, k, v, causal: bool, sm_scale: float, with_lse: bool = False,
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
-                q_offset: int = 0):
+                q_offset: int = 0, rowdot: Optional[torch.Tensor] = None):
     """The backward kernels; returns (dq, dk, dv) in the operands' type and
-    layout."""
+    layout.  ``rowdot`` is the float32 ``[B, H, Sq]`` scratch of the rows'
+    dot D (allocated here if None)."""
     from repro_torch.kernels.build import library
 
     b, h, sq, d = q.shape
@@ -173,7 +180,8 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    rowdot = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if rowdot is None:
+        rowdot = _rowdot(q)
     fn = library("flash_attention_bwd").flash_attention_bwd_launch
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -193,6 +201,103 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
     return dq, dk, dv
 
 
+def _rowdot(q: torch.Tensor) -> torch.Tensor:
+    b, h, sq, _ = q.shape
+    return torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+
+
+def _fwd_out(q: torch.Tensor) -> torch.Tensor:
+    """o in [B, S, H, d] memory order, as the forward kernel writes it."""
+    b, h, sq, d = q.shape
+    return torch.empty((b, sq, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+# --------------------------------------------------------------------------- #
+# The launches as custom ops: fake implementations, FLOP and byte formulas
+# --------------------------------------------------------------------------- #
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, sm_scale: float,
+                  q_offset: int) -> torch.Tensor:
+    return _launch(q, k, v, causal, sm_scale, q_offset=q_offset)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, sm_scale, q_offset):
+    return _fwd_out(q)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd_lse", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, sm_scale: float, q_offset: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(q, k, v, causal, sm_scale, with_lse=True,
+                   q_offset=q_offset)
+
+
+@_flash_fwd_lse_op.register_fake
+def _(q, k, v, causal, sm_scale, q_offset):
+    b, h, sq, _ = q.shape
+    return _fwd_out(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=("rowdot",),
+                         device_types="cuda")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  rowdot: torch.Tensor, causal: bool, sm_scale: float,
+                  q_offset: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _launch_bwd(q, k, v, o, lse, do, causal, sm_scale,
+                       q_offset=q_offset, rowdot=rowdot)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, rowdot, causal, sm_scale, q_offset):
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def _dims(q_shape, k_shape):
+    b, h, sq, d = q_shape
+    return b, h, k_shape[1], sq, k_shape[2], d
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_fwd,
+                        torch.ops.repro_torch.flash_fwd_lse], get_raw=True)
+def _flash_fwd_flops(q, k, v, causal, sm_scale, q_offset, *a, **kw):
+    b, h, _hkv, sq, sk, d = _dims(q.shape, k.shape)
+    return int(cost.flash_flops(b, h, sq, sk, d, causal, q.element_size(),
+                                q_offset))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd, get_raw=True)
+def _flash_bwd_flops(q, k, v, o, lse, do, rowdot, causal, sm_scale,
+                     q_offset, *a, **kw):
+    b, h, _hkv, sq, sk, d = _dims(q.shape, k.shape)
+    return int(cost.flash_bwd_flops(b, h, sq, sk, d, causal,
+                                    q.element_size(), q_offset))
+
+
+def _fwd_bytes(q, k, v, causal, sm_scale, q_offset):
+    return cost.flash_bytes(*_dims(q.shape, k.shape), causal,
+                            q.element_size(), q_offset)
+
+
+def _bwd_bytes(q, k, v, o, lse, do, rowdot, causal, sm_scale, q_offset):
+    return cost.flash_bwd_bytes(*_dims(q.shape, k.shape), causal,
+                                q.element_size(), q_offset)
+
+
+# op overload packet -> bytes the launch moves, from its arguments
+BYTES = {torch.ops.repro_torch.flash_fwd: _fwd_bytes,
+         torch.ops.repro_torch.flash_fwd_lse: _fwd_bytes,
+         torch.ops.repro_torch.flash_bwd: _bwd_bytes}
+
+
 def _flat(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, *t.shape[2:])
 
@@ -210,8 +315,8 @@ class FlashAttention(torch.autograd.Function):
         b, h, sq, d = q.shape
         hkv = k.shape[1]
         if backend == "cuda":
-            out, lse = _launch(q, k, v, causal, 1.0 / d ** 0.5,
-                               with_lse=True, q_offset=q_offset)
+            out, lse = torch.ops.repro_torch.flash_fwd_lse(
+                q, k, v, causal, 1.0 / d ** 0.5, q_offset)
         else:
             out, lse = attention_fwd_ref(_flat(q), _flat(k), _flat(v),
                                          q_heads=h, kv_heads=hkv,
@@ -227,8 +332,9 @@ class FlashAttention(torch.autograd.Function):
         b, h, sq, d = q.shape
         hkv, sk = k.shape[1], k.shape[2]
         if ctx.backend == "cuda":
-            dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, ctx.causal,
-                                     1.0 / d ** 0.5, q_offset=ctx.q_offset)
+            dq, dk, dv = torch.ops.repro_torch.flash_bwd(
+                q, k, v, out, lse, dout, _rowdot(q), ctx.causal,
+                1.0 / d ** 0.5, ctx.q_offset)
         else:
             dq, dk, dv = attention_bwd_ref(
                 _flat(q), _flat(k), _flat(v), _flat(out),
@@ -268,7 +374,8 @@ def flash_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, backend, q_offset)
     if backend == "cuda":
-        return _launch(q, k, v, causal, 1.0 / d ** 0.5, q_offset=q_offset)
+        return torch.ops.repro_torch.flash_fwd(q, k, v, causal,
+                                               1.0 / d ** 0.5, q_offset)
     out = attention_ref(q.reshape(b * h, sq, d), k.reshape(b * hkv, sk, d),
                         v.reshape(b * hkv, sk, d), q_heads=h, kv_heads=hkv,
                         causal=causal, q_offset=q_offset)

@@ -8,6 +8,11 @@ Nothing falls back: a CUDA tensor goes through the kernel or raises.
 ``LAUNCHES`` counts calls that launched the kernel (one per call, although
 a call issues three CUDA kernels: chunk states, the pass over the
 chunks, the scan), so a run can show that its path went through it.
+Each call is a ``torch.library`` custom op (``repro_torch::ssd_scan``,
+``ssd_scan_state``) with a fake implementation, a FLOP formula and a byte
+formula (``BYTES``), so that a traced run on fake tensors (the dry run)
+passes through it; the scratch the kernel needs is allocated before the op
+and handed to it, so that a memory tracker sees it.
 The kernel has no backward yet: a CUDA call whose float inputs need a
 gradient raises (``refuse_grad``), so Mamba-2 and Zamba2 train only on
 the CPU until it has one.
@@ -15,11 +20,14 @@ the CPU until it has one.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.device import card_tracing, on_card
+from repro_torch.kernels import cost
 from repro_torch.kernels.bitlinear.ops import refuse_grad
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
 
@@ -28,16 +36,34 @@ LAUNCHES: Dict[str, int] = {"float32": 0}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
 
+# scans a traced run took by route (:func:`route`)
+ROUTES: Dict[str, int] = {"kernel": 0, "grouped": 0}
+
+
 def reset_launches() -> None:
     LAUNCHES["float32"] = 0
+
+
+def route(dtx: torch.Tensor) -> str:
+    """Which scan the model runs on ``dtx`` (a tensor or a DTensor):
+    ``"grouped"`` (``ref.ssd_grouped_scan``, differentiable) where a
+    traced run of the card's program (``device.card_trace``) needs the
+    gradient, which the kernel does not give; else ``"kernel"``, the
+    :func:`ssd` wrapper (the kernel on the card, which refuses a gradient;
+    its plain version on the CPU).  Counted in ``ROUTES``."""
+    grouped = (card_tracing() and torch.is_grad_enabled()
+               and dtx.requires_grad)
+    which = "grouped" if grouped else "kernel"
+    ROUTES[which] += 1
+    return which
 
 
 def _resolve(backend: str, t: torch.Tensor) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
     if backend == "auto":
-        return "cuda" if t.is_cuda else "reference"
-    if backend == "cuda" and not t.is_cuda:
+        return "cuda" if on_card(t) else "reference"
+    if backend == "cuda" and not on_card(t):
         raise ValueError(f"backend='cuda' needs CUDA tensors; got {t.device}")
     if backend != "cuda" and t.is_cuda:
         raise ValueError(
@@ -56,9 +82,29 @@ def scratch_sizes(nb: int, nh: int, s: int, n: int, p: int,
     return nb * nh * nc * n * p, nb * nh * nc
 
 
-def _launch(dta, dtx, b, c, chunk: int, return_state: bool):
+def _scratch(dtx, n: int, chunk: int) -> torch.Tensor:
+    nb, nh, s, p = dtx.shape
+    return torch.empty(sum(scratch_sizes(nb, nh, s, n, p, chunk)),
+                       dtype=torch.float32, device=dtx.device)
+
+
+def _outputs(dtx, n: int, return_state: bool):
+    """y in [batch, S, heads, P] memory order (the model reads it that
+    way) and the terminal state, as the kernel writes them."""
+    nb, nh, s, p = dtx.shape
+    y = torch.empty((nb, s, nh, p), dtype=torch.float32,
+                    device=dtx.device).transpose(1, 2)
+    h = (torch.empty((nb, nh, n, p), dtype=torch.float32, device=dtx.device)
+         if return_state else None)
+    return y, h
+
+
+def _launch(dta, dtx, b, c, chunk: int, return_state: bool,
+            scratch: Optional[torch.Tensor] = None):
     """The kernel over 4-D [batch, heads, S, ...] views; returns
-    (y [batch, heads, S, P], h_final [batch, heads, N, P] or None)."""
+    (y [batch, heads, S, P], h_final [batch, heads, N, P] or None).
+    ``scratch`` holds :func:`scratch_sizes` float32 elements (allocated
+    here if None)."""
     from repro_torch.kernels.build import library
 
     tensors = (("dta", dta), ("dtx", dtx), ("b", b), ("c", c))
@@ -76,16 +122,12 @@ def _launch(dta, dtx, b, c, chunk: int, return_state: bool):
         raise ValueError(f"the SSD kernel takes chunk <= {MAX_CHUNK}, "
                          f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got "
                          f"chunk={chunk}, P={p}, N={n}")
-    # y in [batch, S, heads, P] memory order: the model reads it that way
-    y = torch.empty((nb, s, nh, p), dtype=torch.float32,
-                    device=dtx.device).transpose(1, 2)
-    h = (torch.empty((nb, nh, n, p), dtype=torch.float32, device=dtx.device)
-         if return_state else None)
+    y, h = _outputs(dtx, n, return_state)
     if s == 0:
         return y, (h.zero_() if h is not None else None)
-    n_states, n_decay = scratch_sizes(nb, nh, s, n, p, chunk)
-    scratch = torch.empty(n_states + n_decay, dtype=torch.float32,
-                          device=dtx.device)
+    n_states, _ = scratch_sizes(nb, nh, s, n, p, chunk)
+    if scratch is None:
+        scratch = _scratch(dtx, n, chunk)
     states = scratch.data_ptr()
     decay = states + 4 * n_states
     fn = library("ssd").ssd_launch
@@ -105,6 +147,50 @@ def _launch(dta, dtx, b, c, chunk: int, return_state: bool):
                            f"chunk={chunk})")
     LAUNCHES["float32"] += 1
     return y, h
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=("scratch",),
+                         device_types="cuda")
+def _ssd_op(dta: torch.Tensor, dtx: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, scratch: torch.Tensor,
+            chunk: int) -> torch.Tensor:
+    return _launch(dta, dtx, b, c, chunk, False, scratch)[0]
+
+
+@_ssd_op.register_fake
+def _(dta, dtx, b, c, scratch, chunk):
+    return _outputs(dtx, b.shape[-1], False)[0]
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_state",
+                         mutates_args=("scratch",), device_types="cuda")
+def _ssd_state_op(dta: torch.Tensor, dtx: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, scratch: torch.Tensor,
+                  chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(dta, dtx, b, c, chunk, True, scratch)
+
+
+@_ssd_state_op.register_fake
+def _(dta, dtx, b, c, scratch, chunk):
+    return _outputs(dtx, b.shape[-1], True)
+
+
+@register_flop_formula([torch.ops.repro_torch.ssd_scan,
+                        torch.ops.repro_torch.ssd_scan_state], get_raw=True)
+def _ssd_flops(dta, dtx, b, c, scratch, chunk, *a, **kw):
+    nb, nh, s, p = dtx.shape
+    return int(cost.ssd_flops(nb, nh, s, b.shape[-1], p, chunk))
+
+
+def _ssd_bytes(dta, dtx, b, c, scratch, chunk):
+    nb, nh, s, p = dtx.shape
+    shared = b.stride(1) == 0 and c.stride(1) == 0
+    return cost.ssd_bytes(nb, nh, s, b.shape[-1], p, shared)
+
+
+# op overload packet -> bytes the launch moves, from its arguments
+BYTES = {torch.ops.repro_torch.ssd_scan: _ssd_bytes,
+         torch.ops.repro_torch.ssd_scan_state: _ssd_bytes}
 
 
 def _plain(dta, dtx, b, c, chunk: int, naive: bool, return_state: bool):
@@ -160,7 +246,13 @@ def ssd(
                     dta, dtx, b, c)
         if not split:
             dta, dtx, b, c = (t.unsqueeze(0) for t in (dta, dtx, b, c))
-        y, h = _launch(dta, dtx, b, c, chunk, return_state)
+        scratch = _scratch(dtx, n, chunk)
+        if return_state:
+            y, h = torch.ops.repro_torch.ssd_scan_state(dta, dtx, b, c,
+                                                         scratch, chunk)
+        else:
+            y, h = torch.ops.repro_torch.ssd_scan(dta, dtx, b, c, scratch,
+                                                  chunk), None
         if not split:
             y, h = y[0], (h[0] if h is not None else None)
         return (y, h) if return_state else y

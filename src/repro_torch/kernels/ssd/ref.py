@@ -5,6 +5,9 @@
 ``ssd_chunked_ref``   — the chunked SSD, the kernel's own math vectorised
                         over chunks, with the chunk-to-chunk state carry as a
                         loop.
+``ssd_grouped_scan``  — the JAX model's default scan: chunk after chunk,
+                        one ``[B, H, q, q]`` tile live, C Bᵀ once per batch
+                        for the head-shared B and C.
 
 Inputs are pre-scaled (``dta = dt * A`` [negative], ``dtx = dt * x``) and
 computed in float32; see ``csrc/ssd.cu`` for the recurrence.
@@ -83,3 +86,56 @@ def ssd_chunked_ref(
     y = y + torch.stack(y_inter, dim=1)
     y = y.reshape(bh, s, p).to(dtx.dtype)
     return (y, h) if return_state else y
+
+
+def ssd_grouped_scan(
+    dta: torch.Tensor,     # [B, H, S]
+    dtx: torch.Tensor,     # [B, H, S, P]
+    b: torch.Tensor,       # [B, S, N]   group-shared (Mamba-2 n_groups=1)
+    c: torch.Tensor,       # [B, S, N]
+    *,
+    chunk: int = 128,
+    return_state: bool = False,
+):
+    """Production-memory chunked SSD: a sequential loop over chunks (one
+    ``[B, H, q, q]`` tile live at a time, where :func:`ssd_chunked_ref`
+    holds all of them) with **group-shared scores**: C_i B_j^T is computed
+    once per batch, not once per head, since Mamba-2's heads share B and C.
+    Differentiable, in plain tensor operations (DTensors included).
+
+    ``S`` must be a multiple of ``chunk``.  Returns y ``[B, H, S, P]`` in
+    dtx's type (and the final state ``[B, H, N, P]`` float32)."""
+    bsz, h, s, p = dtx.shape
+    n = b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"S={s} not divisible by chunk={chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+    dta_c = dta.reshape(bsz, h, nc, chunk).to(f32)
+    dtx_c = dtx.reshape(bsz, h, nc, chunk, p).to(f32)
+    b_c = b.reshape(bsz, nc, chunk, n).to(f32)
+    c_c = c.reshape(bsz, nc, chunk, n).to(f32)
+    idx = torch.arange(chunk, device=dtx.device)
+    upper = idx[:, None] < idx[None, :]
+
+    hst = torch.zeros((bsz, h, n, p), dtype=f32, device=dtx.device)
+    ys = []
+    for k in range(nc):
+        dta_k, dtx_k = dta_c[:, :, k], dtx_c[:, :, k]   # [B,H,q], [B,H,q,p]
+        b_k, c_k = b_c[:, k], c_c[:, k]                  # [B,q,n] each
+        la = torch.cumsum(dta_k, dim=-1)                 # [B,H,q]
+        seg = (la[..., :, None] - la[..., None, :]).masked_fill(upper, -1e30)
+        decay = torch.exp(seg)                           # [B,H,q,q]
+        group_scores = torch.einsum("bin,bjn->bij", c_k, b_k)   # once per B
+        y = torch.einsum("bhij,bhjp->bhip", group_scores[:, None] * decay,
+                         dtx_k)
+        la_tot = la[..., -1]                             # [B,H]
+        # inter-chunk state readout: (C_i * exp(la_i)) @ h_prev
+        y = y + torch.einsum("bhin,bhnp->bhip",
+                             c_k[:, None] * torch.exp(la)[..., None], hst)
+        decay_out = torch.exp(la_tot[..., None] - la)    # [B,H,q]
+        hst = torch.exp(la_tot)[..., None, None] * hst + torch.einsum(
+            "bhjn,bhjp->bhnp", b_k[:, None] * decay_out[..., None], dtx_k)
+        ys.append(y.to(dtx.dtype))
+    y = torch.stack(ys, dim=2).reshape(bsz, h, s, p)
+    return (y, hst) if return_state else y

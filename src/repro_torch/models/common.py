@@ -6,6 +6,7 @@ import math
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import constrain, settle
 from repro_torch.quant.bitnet import fake_quant_act, fake_quant_weight
 
 
@@ -37,7 +38,49 @@ def dense(
         # down
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and x.ndim > 2:
+        return matmul_sharded(x, w)
     return x @ w
+
+
+def matmul_sharded(x, w):
+    """``x [..., K] @ w [K, N]`` on DTensors, each rank multiplying its
+    shards (``local_map``): DTensor's own matmul flattens x's leading axes
+    first, which it refuses where a later one (the sequence, under
+    context parallelism) is split.  Per mesh axis: x split along a row
+    axis keeps it and gathers w there (FSDP); else w split by columns
+    gives output columns; else a split K (either side's) is matched on the
+    other and the products are partial sums."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim)
+    x = settle(x)
+    kx = x.ndim - 1
+    xp, wp, outp, x_grad, w_grad = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if px.is_shard() and px.dim != kx:       # rows: batch, sequence
+            xp.append(px), wp.append(Replicate()), outp.append(px)
+            x_grad.append(px), w_grad.append(Partial())
+        elif pw.is_shard(1):                     # column parallel
+            xp.append(Replicate()), wp.append(pw), outp.append(Shard(kx))
+            x_grad.append(Partial()), w_grad.append(pw)
+        elif pw.is_shard(0) or px.is_shard(kx):  # row parallel: K split
+            xp.append(Shard(kx)), wp.append(Shard(0)), outp.append(Partial())
+            x_grad.append(Shard(kx)), w_grad.append(Shard(0))
+        else:
+            for lst in (xp, wp, outp, x_grad, w_grad):
+                lst.append(Replicate())
+    x, w = x.redistribute(mesh, xp), w.redistribute(mesh, wp)
+    return local_map(
+        torch.matmul, out_placements=(tuple(outp),),
+        in_placements=(tuple(xp), tuple(wp)),
+        in_grad_placements=(tuple(x_grad), tuple(w_grad)),
+        device_mesh=mesh)(x, w)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
@@ -45,6 +88,28 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * gamma.to(torch.float32)).to(dt)
+
+
+def prompt_positions(x: torch.Tensor) -> torch.Tensor:
+    """Positions ``[B, S]`` of a prompt's rows ``x [B, S, ...]``: 0 .. S-1
+    on every row.  For a DTensor ``x``, a DTensor laid out as x's rows
+    (each rank holds its rows' and sequence shard's positions), so that
+    the RoPE tables are not built whole on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.distributed.sharding import local_extent
+
+    b, s = x.shape[:2]
+    if not isinstance(x, DTensor):
+        return torch.arange(s, device=x.device)[None].expand(b, s)
+    shape, start = local_extent(x)
+    local = torch.arange(start[1], start[1] + shape[1],
+                         device=x.to_local().device)[None].expand(
+                             shape[0], shape[1])
+    return DTensor.from_local(
+        local, x.device_mesh,
+        [pl if pl.is_shard() and pl.dim < 2 else Replicate()
+         for pl in x.placements], shape=(b, s), stride=(s, 1))
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
@@ -74,11 +139,80 @@ def swiglu(x, w1, w2, w3, *, quantize: bool):
     h = torch.nn.functional.silu(dense(x, w1, quantize=quantize)) * dense(
         x, w3, quantize=quantize
     )
+    h = constrain(h, "batch", "seq", "ff")
     return dense(h, w2, quantize=quantize)
 
 
+class _SumOverGroups(torch.autograd.Function):
+    """A partial sum all-reduced over process groups, for a value every
+    rank of those groups then uses alike; the gradient of each rank's part
+    is the (replicated) gradient of the sum, as in Megatron's
+    vocab-parallel cross-entropy."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        for grp in groups:
+            x = funcol.all_reduce(x, "sum", grp)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _cross_entropy_sharded(logits, targets):
+    """Per-token cross-entropy ``[B, S]`` of DTensor logits whose vocab
+    may lie on mesh axes (vocab-parallel): each rank takes the row maxima,
+    sums of exponentials and the gold logits of its vocab shard
+    (``local_map``), and these are reduced over the vocab's axes; the
+    result keeps the logits' row layout."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import local_extent
+
+    mesh, vdim = logits.device_mesh, logits.ndim - 1
+    if not isinstance(targets, DTensor):
+        targets = DTensor.from_local(targets, mesh,
+                                     [Replicate()] * mesh.ndim)
+    rows = tuple(Replicate() if pl.is_shard(vdim) else pl
+                 for pl in logits.placements)
+    targets = targets.redistribute(mesh, rows)
+    groups = [mesh.get_group(i) for i, pl in enumerate(logits.placements)
+              if pl.is_shard(vdim)]
+    shape, start = local_extent(logits)
+    v0, vn = start[-1], shape[-1]
+
+    def local(lg, tg):
+        lg = lg.to(torch.float32)
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        for grp in groups:
+            m = funcol.all_reduce(m, "max", grp)
+        sumexp = _SumOverGroups.apply(torch.exp(lg - m).sum(dim=-1), groups)
+        idx = tg.long() - v0
+        inside = (idx >= 0) & (idx < vn)
+        gold = torch.gather(lg, -1, idx.clamp(0, max(vn - 1, 0))[..., None])
+        gold = _SumOverGroups.apply(torch.where(inside, gold[..., 0], 0.0),
+                                    groups)
+        return torch.log(sumexp) + m[..., 0] - gold
+
+    return local_map(local, out_placements=(rows,),
+                     in_placements=(tuple(logits.placements), rows),
+                     device_mesh=mesh)(logits, targets)
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy; logits [B, S, V] f32-cast, targets [B, S]."""
+    """Mean token cross-entropy; logits [B, S, V] f32-cast, targets [B, S].
+
+    DTensor logits take :func:`_cross_entropy_sharded` (vocab-parallel),
+    which reads no whole row of the vocab anywhere."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        return torch.mean(_cross_entropy_sharded(logits, targets))
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]

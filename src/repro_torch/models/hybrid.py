@@ -23,10 +23,14 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import mamba2
 from repro_torch.models.attention import KVCache, attention, init_attn_params
 from repro_torch.models.common import (
+    dense,
     dense_init,
+    maybe_remat,
+    prompt_positions,
     dtype_of,
     embed_init,
     rms_norm,
@@ -87,8 +91,11 @@ def _mamba_stack(cfg, x, blocks, app: int,
     """The Mamba blocks that follow shared-attention application ``app``."""
     e = cfg.attn_every
     layers = range(app * e, min((app + 1) * e, cfg.layers))
+    # the JAX training scan lays out each period's parameters
+    # (constrain_layer_params on the period's stack); here each layer's,
+    # which is the layout that stack constraint means
     return mamba2.run_blocks(cfg, blocks, x, layers, cache=cache,
-                             decode=decode)
+                             decode=decode, train_constraints=cache is None)
 
 
 def _forward_cached(cfg, params, x, positions,
@@ -98,9 +105,21 @@ def _forward_cached(cfg, params, x, positions,
     JAX package's period/tail scan.  ``cache=None`` is the training
     forward."""
     shared = params["shared"]
-    ssm = None if cache is None else mamba2.SSMCache(cache.conv, cache.state)
-    for app in range(n_attn_apps(cfg)):
-        kv = None if cache is None else KVCache(cache.k[app], cache.v[app])
+    apps = n_attn_apps(cfg)
+    if cache is None:
+        def period(x, app):
+            x, _ = _shared_block(cfg, shared, x, positions)
+            return _mamba_stack(cfg, x, params["blocks"], app)
+
+        # the JAX scan rematerializes every full period, not the tail one
+        remat = maybe_remat(period, cfg) if torch.is_grad_enabled() \
+            else period
+        for app in range(apps):
+            x = (remat if app < apps - 1 else period)(x, app)
+        return x
+    ssm = mamba2.SSMCache(cache.conv, cache.state)
+    for app in range(apps):
+        kv = KVCache(cache.k[app], cache.v[app])
         x, _ = _shared_block(cfg, shared, x, positions, cache=kv,
                              cache_pos=cache_pos)
         x = _mamba_stack(cfg, x, params["blocks"], app, cache=ssm,
@@ -108,16 +127,12 @@ def _forward_cached(cfg, params, x, positions,
     return x
 
 
-def _prompt_positions(x):
-    b, s = x.shape[:2]
-    return torch.arange(s, device=x.device)[None].expand(b, s)
-
-
 def forward_train(cfg, params, batch) -> torch.Tensor:
     x = mamba2.embed_tokens(params, batch["tokens"])
-    x = _forward_cached(cfg, params, x, _prompt_positions(x))
+    x = _forward_cached(cfg, params, x, prompt_positions(x))
     x = rms_norm(x, params["ln_f"])
-    return x @ params["embed"]["tokens"].T
+    logits = dense(x, params["embed"]["tokens"].T)
+    return constrain(logits, "batch", None, "vocab")
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> HybridCache:
@@ -134,9 +149,9 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> HybridCache:
 
 def forward_prefill(cfg, params, batch, cache: HybridCache):
     x = mamba2.embed_tokens(params, batch["tokens"])
-    x = _forward_cached(cfg, params, x, _prompt_positions(x), cache=cache)
+    x = _forward_cached(cfg, params, x, prompt_positions(x), cache=cache)
     x = rms_norm(x, params["ln_f"])
-    logits = x[:, -1:, :] @ params["embed"]["tokens"].T
+    logits = dense(x[:, -1:, :], params["embed"]["tokens"].T)
     return logits, cache
 
 
@@ -152,7 +167,7 @@ def forward_decode(cfg, params, token, cache: HybridCache, pos):
     x = _forward_cached(cfg, params, x, positions, cache=cache,
                         cache_pos=pos, decode=True)
     x = rms_norm(x, params["ln_f"])
-    return x @ params["embed"]["tokens"].T, cache
+    return dense(x, params["embed"]["tokens"].T), cache
 
 
 def hybrid_lowering_spec(cfg, *, seq_len: int = 64, chunks: int = 2,

@@ -7,13 +7,17 @@ Block structure (faithful to Mamba-2):
     gated RMSNorm (norm(y) * silu(z)) -> out_proj
 
 The port of ``repro.models.mamba2``: the ``lax.scan`` over layers is a
-Python loop, and the sharding constraints (no-ops on one device) are gone.
+Python loop; the sharding constraints are kept (the identity on plain
+tensors, a redistribution of DTensors under the active rules).
 The full-sequence scan is one call of :func:`repro_torch.kernels.ssd.ops.ssd`
 on per-head inputs (the JAX package's Pallas branch): the SSD kernel for
 CUDA tensors, its chunked plain version for CPU tensors.  The group-shared
 B and C go in as an ``expand`` view over heads, not a copy.
 ``cfg.kernel_backend``, a TPU choice between that branch and the grouped
-jnp scan, is not read: both compute the same function.  Decode is the
+jnp scan, is not read: both compute the same function.  The grouped scan
+(:func:`repro_torch.kernels.ssd.ref.ssd_grouped_scan`) is what a traced
+train step of the card's program takes (``ssd_ops.route``): the kernel
+has no backward, and the card's own train path refuses.  Decode is the
 exact one-step recurrence in plain tensor operations.  Prefill and decode
 write the caches in place (the returned cache holds the same tensors).
 """
@@ -24,10 +28,15 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.distributed.sharding import (
+    constrain, constrain_layer_params, settle,
+)
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_grouped_scan
 from repro_torch.models.common import (
     dense,
     dense_init,
+    maybe_remat,
     dtype_of,
     embed_init,
     rms_norm,
@@ -72,7 +81,12 @@ def _causal_conv(xbc, w, b):
     """Depthwise causal conv over sequence. xbc [B,S,C], w [K,C].
 
     The JAX package's sum of shifted products (not ``F.conv1d``, which
-    cuDNN would run in TF32 on float32 inputs)."""
+    cuDNN would run in TF32 on float32 inputs).  On DTensors each rank
+    convolves its rows and channels (the whole sequence)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(xbc, DTensor):
+        return _causal_conv_sharded(xbc, w, b)
     k = w.shape[0]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     s = xbc.shape[1]
@@ -80,6 +94,28 @@ def _causal_conv(xbc, w, b):
     for i in range(1, k):
         out = out + pad[:, i:i + s, :] * w[i][None, None, :]
     return out + b[None, None, :]
+
+
+def _causal_conv_sharded(xbc, w, b):
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xbc.device_mesh
+    xp = tuple(Replicate() if pl.is_shard(1) or pl.is_partial() else pl
+               for pl in xbc.placements)
+    wp = tuple(Shard(1) if pl.is_shard(2) else Replicate() for pl in xp)
+    bp = tuple(Shard(0) if pl.is_shard(2) else Replicate() for pl in xp)
+    xbc = xbc.redistribute(mesh, xp)
+    w, b = (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim) for t in (w, b))
+    w, b = w.redistribute(mesh, wp), b.redistribute(mesh, bp)
+    # the channel weights' gradients add up over the batch rows' ranks
+    grad = lambda ps: tuple(Partial() if px.is_shard(0) else p  # noqa: E731
+                            for p, px in zip(ps, xp))
+    return local_map(_causal_conv, out_placements=(xp,),
+                     in_placements=(xp, wp, bp),
+                     in_grad_placements=(xp, grad(wp), grad(bp)),
+                     device_mesh=mesh)(xbc, w, b)
 
 
 def ssm_block(
@@ -99,9 +135,14 @@ def ssm_block(
     di, nh, n, hd = _dims(cfg)
     quant = cfg.quantization == "bitnet"
     f32 = torch.float32
-    z = dense(x, p["in_proj_z"], quantize=quant)
-    xbc = dense(x, p["in_proj_xbc"], quantize=quant)
-    dt = dense(x, p["in_proj_dt"], quantize=quant)
+    # inner activations shard over the model axis (depthwise conv and the
+    # per-head SSD are channel/head-local, so this costs no collectives)
+    z = constrain(dense(x, p["in_proj_z"], quantize=quant),
+                  "batch", "seq", "d_inner")
+    xbc = constrain(dense(x, p["in_proj_xbc"], quantize=quant),
+                    "batch", "seq", "d_inner")
+    dt = constrain(dense(x, p["in_proj_dt"], quantize=quant),
+                   "batch", "seq", "ssm_heads")
     dt = F.softplus(dt.to(f32) + p["dt_bias"])                   # [B,S,nh]
     a = -torch.exp(p["a_log"])                                   # [nh]
 
@@ -114,6 +155,7 @@ def ssm_block(
         xbc_t = F.silu(xbc_t)[:, None, :]                        # [B,1,cd]
     else:
         xbc_t = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        xbc_t = constrain(xbc_t, "batch", "seq", "d_inner")
         # cache the last k-1 conv inputs for subsequent decoding
         new_conv_state = (xbc.transpose(1, 2)[..., s - (k - 1):]
                           if s >= k - 1 else None)
@@ -122,6 +164,7 @@ def ssm_block(
     bmat = xbc_t[..., di:di + n]             # [B,S,N] (single group)
     cmat = xbc_t[..., di + n:]               # [B,S,N]
     xh = xs.reshape(b, s, nh, hd)
+    xh = constrain(xh, "batch", "seq", "ssm_heads", None)
 
     if decode:
         # exact one-step recurrence: h = exp(dt a) h + dt B x^T; y = C h
@@ -136,19 +179,70 @@ def ssm_block(
         chunk = min(cfg.ssd_chunk, s)
         dta_h = (dt * a[None, None, :]).transpose(1, 2)          # [B,H,S]
         dtx_h = (xh * dt[..., None]).transpose(1, 2)             # [B,H,S,hd]
-        # B and C are shared by every head: a stride-0 view, not a copy
-        b_h = bmat.to(f32)[:, None].expand(b, nh, s, n)
-        c_h = cmat.to(f32)[:, None].expand(b, nh, s, n)
-        out = ssd(dta_h, dtx_h, b_h, c_h, chunk=chunk,
-                  return_state=return_state)
-        y, new_ssd_state = out if return_state else (out, None)
+        y, new_ssd_state = _scan(dta_h, dtx_h, bmat.to(f32), cmat.to(f32),
+                                 chunk, return_state)
         y = y.transpose(1, 2).reshape(b, s, di)
 
     y = y + (xh * p["d_skip"][None, None, :, None]).reshape(
         b, s, di).to(y.dtype)
+    y = constrain(y, "batch", "seq", "d_inner")
     y = rms_norm(y.to(dtype_of(cfg)), p["norm"]) * F.silu(z)
     return (dense(y, p["out_proj"], quantize=quant), new_conv_state,
             new_ssd_state)
+
+
+def _scan(dta_h, dtx_h, bmat, cmat, chunk: int, return_state: bool):
+    """The SSD scan over the whole sequence: dta ``[B,H,S]``, dtx
+    ``[B,H,S,P]``, the group-shared B and C ``[B,S,N]`` -> (y ``[B,H,S,P]``,
+    terminal state or None).  The kernel's route takes B and C as an
+    ``expand`` view over heads (head stride 0, no copy); a traced train
+    step takes the grouped scan (:func:`ssd_ops.route`).  On DTensors the
+    scan runs on each rank's batch rows and heads (``local_map``), which
+    needs no collective; B and C, shared by the heads, are whole along the
+    heads' mesh axes, and their gradients add up over those axes."""
+    grouped = ssd_ops.route(dtx_h) == "grouped"
+
+    def heads(dta_h, dtx_h, bmat, cmat):
+        b, nh, s, _ = dtx_h.shape
+        if grouped:
+            pad = (-s) % chunk
+            if pad:
+                # padded steps have dta = 0 (decay 1) and zero inputs, so
+                # the outputs and the terminal state are unaffected
+                dta_h = F.pad(dta_h, (0, pad))
+                dtx_h, bmat, cmat = (F.pad(t, (0, 0, 0, pad))
+                                     for t in (dtx_h, bmat, cmat))
+            out = ssd_grouped_scan(dta_h, dtx_h, bmat, cmat, chunk=chunk,
+                                   return_state=return_state)
+            y, h = out if return_state else (out, None)
+            return (y[:, :, :s] if pad else y), h
+        n = bmat.shape[-1]
+        out = ssd_ops.ssd(dta_h, dtx_h, bmat[:, None].expand(b, nh, s, n),
+                          cmat[:, None].expand(b, nh, s, n), chunk=chunk,
+                          return_state=return_state)
+        return out if return_state else (out, None)
+
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(dtx_h, DTensor):
+        return heads(dta_h, dtx_h, bmat, cmat)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = dtx_h.device_mesh, tuple(dtx_h.placements)
+    # B and C [B, S, N] as dtx [B, H, S, P] but whole along the heads
+    bc = tuple(Replicate() if p.is_shard(1) else Shard(1) if p.is_shard(2)
+               else p for p in pl)
+    bc_grad = tuple(Partial() if p.is_shard(1) else q
+                    for p, q in zip(pl, bc))
+    dta_pl = tuple(p if not p.is_shard(3) else Replicate() for p in pl)
+    dta_h = dta_h.redistribute(mesh, dta_pl)
+    bmat, cmat = (t.redistribute(mesh, bc) for t in (bmat, cmat))
+    return local_map(
+        heads, out_placements=(pl, pl if return_state else None),
+        in_placements=(dta_pl, pl, bc, bc),
+        in_grad_placements=(dta_pl, pl, bc_grad, bc_grad),
+        device_mesh=mesh)(dta_h, dtx_h, bmat, cmat)
 
 
 # --------------------------------------------------------------------------- #
@@ -178,18 +272,33 @@ def init_params(cfg, gen: torch.Generator, device) -> Dict:
 
 
 def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
-               decode: bool = False):
+               decode: bool = False, train_constraints: bool = False,
+               remat: bool = False):
     """Residual Mamba blocks ``layers`` (indices into the stacked
     ``blocks``) in order.  With ``cache`` (stacked ``[L, ...]``) prefill
     (``decode=False``) and decode write each layer's conv and SSD states
-    in place."""
+    in place.  ``train_constraints`` lays each layer's parameters out by
+    the active rules first (``constrain_layer_params``), as the JAX
+    training scan does.  ``remat``: without a cache and with grad enabled
+    (the train path) each block is rematerialized as ``cfg.remat`` says,
+    as the JAX model's scan body is (the hybrid's inner stack is not)."""
     per_layer = _layers(blocks)
+
+    def train_layer(lp, x):
+        if train_constraints:
+            lp = constrain_layer_params(lp, cfg)
+        return x + ssm_block(lp["ssm"], cfg, rms_norm(x, lp["ln"]))[0]
+
+    if cache is None:
+        if remat and torch.is_grad_enabled():
+            train_layer = maybe_remat(train_layer, cfg)
+        for i in layers:
+            x = train_layer(per_layer[i], x)
+        return x
     for i in layers:
         lp = per_layer[i]
         h = rms_norm(x, lp["ln"])
-        if cache is None:
-            y, _, _ = ssm_block(lp["ssm"], cfg, h)
-        elif decode:
+        if decode:
             y, conv_st, ssd_st = ssm_block(
                 lp["ssm"], cfg, h, conv_state=cache.conv[i],
                 ssd_state=cache.state[i], decode=True)
@@ -210,14 +319,16 @@ def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding's backward sums each row's gradient in a fixed order
     # (indexing's accumulates with atomics on the CPU), so a resumed
     # training run equals an uninterrupted one bit for bit
-    return F.embedding(tokens.long(), params["embed"]["tokens"])
+    return settle(F.embedding(tokens.long(), params["embed"]["tokens"]))
 
 
 def forward_train(cfg, params, batch) -> torch.Tensor:
     x = embed_tokens(params, batch["tokens"])
-    x = run_blocks(cfg, params["blocks"], x, range(cfg.layers))
+    x = run_blocks(cfg, params["blocks"], x, range(cfg.layers),
+                   train_constraints=True, remat=True)
     x = rms_norm(x, params["ln_f"])
-    return x @ params["embed"]["tokens"].T
+    logits = dense(x, params["embed"]["tokens"].T)
+    return constrain(logits, "batch", None, "vocab")
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> SSMCache:
@@ -237,7 +348,7 @@ def forward_prefill(cfg, params, batch, cache: SSMCache):
     x = embed_tokens(params, batch["tokens"])
     x = run_blocks(cfg, params["blocks"], x, range(cfg.layers), cache=cache)
     x = rms_norm(x, params["ln_f"])
-    logits = x[:, -1:, :] @ params["embed"]["tokens"].T
+    logits = dense(x[:, -1:, :], params["embed"]["tokens"].T)
     return logits, cache
 
 
@@ -248,7 +359,7 @@ def forward_decode(cfg, params, token, cache: SSMCache, pos):
     x = run_blocks(cfg, params["blocks"], x, range(cfg.layers), cache=cache,
                    decode=True)
     x = rms_norm(x, params["ln_f"])
-    return x @ params["embed"]["tokens"].T, cache
+    return dense(x, params["embed"]["tokens"].T), cache
 
 
 def ssd_lowering_spec(cfg, *, chunks: int = 2, seed: int = 0):

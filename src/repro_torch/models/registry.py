@@ -7,7 +7,7 @@ The transformer module serves the ``dense``, ``moe``, ``encoder`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -89,3 +89,32 @@ def build_model(cfg, *, device: DeviceLike = None) -> ModelAPI:
         decode=decode,
         prefill_chunk=prefill_chunk,
     )
+
+
+def make_batch_spec(cfg, shape, *, device: DeviceLike = "meta"
+                    ) -> Dict[str, torch.Tensor]:
+    """Storage-free stand-ins for every model input of a shape cell: empty
+    tensors on ``device`` (the meta device, or any device under the
+    caller's ``FakeTensorMode``), with the names, shapes and types of the
+    JAX package's ``ShapeDtypeStruct`` s.
+
+    For train: the full (tokens, targets) pair; an encoder gets frames,
+    a VLM (tokens, patch_embeds, targets)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        # zeros: on the meta device or under a fake mode they hold nothing,
+        # and a real run of a cell reads valid token ids
+        return torch.zeros(shp, dtype=dtype, device=device)
+
+    i32 = torch.int32
+    if cfg.frontend == "audio_frames":
+        return {"frames": sds((b, s, cfg.d_model), getattr(torch, cfg.dtype)),
+                "targets": sds((b, s), i32)}
+    if cfg.frontend == "vision_patches":
+        text = s - cfg.num_patches
+        return {"tokens": sds((b, text), i32),
+                "patch_embeds": sds((b, cfg.num_patches, cfg.d_model),
+                                    getattr(torch, cfg.dtype)),
+                "targets": sds((b, text), i32)}
+    return {"tokens": sds((b, s), i32), "targets": sds((b, s), i32)}

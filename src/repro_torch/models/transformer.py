@@ -2,10 +2,10 @@
 (dense, MoE, VLM and encoder families).
 
 The port of ``repro.models.transformer``: the JAX package's ``lax.scan``
-over layers is a Python loop here, and its sharding constraints (no-ops on
-one device) are gone: the rules of ``repro_torch.distributed.sharding`` are
-read where the port acts on them, by the context-parallel attention
-(``attention._context_parallel_flash``).  The two frontends are stubs, as
+over layers is a Python loop here.  Its sharding constraints are kept
+(``repro_torch.distributed.sharding.constrain``): the identity on plain
+tensors, a redistribution of DTensor activations and layer parameters
+under the active rules (the dry run).  The two frontends are stubs, as
 in JAX: an encoder
 takes precomputed frame embeddings, a VLM precomputed patch embeddings
 prepended to its text.
@@ -16,6 +16,9 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    constrain, constrain_layer_params, settle,
+)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (
     KVCache,
@@ -29,6 +32,7 @@ from repro_torch.models.common import (
     dtype_of,
     embed_init,
     maybe_remat,
+    prompt_positions,
     rms_norm,
     swiglu,
 )
@@ -114,10 +118,12 @@ def _block(cfg, p, x, positions, cache=None, cache_pos=None):
     else:
         x = x + swiglu(h, p["mlp"]["w1"], p["mlp"]["w2"], p["mlp"]["w3"],
                        quantize=cfg.quantization == "bitnet")
+    x = constrain(x, "batch", "seq", "embed")
     return x, new_cache
 
 
 def _train_block(cfg, p, x, positions):
+    p = constrain_layer_params(p, cfg)
     return _block(cfg, p, x, positions)[0]
 
 
@@ -133,6 +139,8 @@ def _run_blocks(cfg, blocks, x, positions, caches=None, cache_pos=None):
             x = block(p, x)
         return x, caches
     for i, p in enumerate(layers):
+        if caches is None:
+            p = constrain_layer_params(p, cfg)
         cache = None if caches is None else KVCache(caches.k[i], caches.v[i])
         x, _ = _block(cfg, p, x, positions, cache=cache, cache_pos=cache_pos)
     return x, caches
@@ -141,13 +149,16 @@ def _run_blocks(cfg, blocks, x, positions, caches=None, cache_pos=None):
 def _logits(cfg, params, x):
     x = rms_norm(x, params["ln_f"])
     if cfg.tie_embeddings:
-        return x @ params["embed"]["tokens"].T
-    return dense(x, params["lm_head"])
+        logits = dense(x, params["embed"]["tokens"].T)
+    else:
+        logits = dense(x, params["lm_head"])
+    # seq deliberately unsharded here: vocab takes the model axis
+    return constrain(logits, "batch", None, "vocab")
 
 
 def _embed_inputs(cfg, params, batch):
-    """Returns (x [B, S, d], positions [B, S]); positions run over the
-    whole sequence, a VLM's patches included."""
+    """The input rows x [B, S, d], a VLM's patches included (their
+    positions: ``prompt_positions(x)``)."""
     if cfg.frontend == "audio_frames":
         # stub frontend: precomputed frame embeddings [B, S, d]
         x = dense(batch["frames"], params["frontend"]["proj"])
@@ -155,14 +166,12 @@ def _embed_inputs(cfg, params, batch):
         # F.embedding's backward sums each row's gradient in a fixed order
         # (indexing's accumulates with atomics on the CPU), so a resumed
         # training run equals an uninterrupted one bit for bit
-        x = torch.nn.functional.embedding(batch["tokens"].long(),
-                                          params["embed"]["tokens"])
+        x = settle(torch.nn.functional.embedding(batch["tokens"].long(),
+                                                 params["embed"]["tokens"]))
         if cfg.frontend == "vision_patches":
             # stub ViT: precomputed patch embeddings prepended to the text
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    return x, positions
+    return x
 
 
 # --------------------------------------------------------------------------- #
@@ -171,8 +180,8 @@ def _embed_inputs(cfg, params, batch):
 
 def forward_train(cfg, params, batch) -> torch.Tensor:
     """The training-shaped forward (no cache): logits [B, S_total, V]."""
-    x, positions = _embed_inputs(cfg, params, batch)
-    x, _ = _run_blocks(cfg, params["blocks"], x, positions)
+    x = constrain(_embed_inputs(cfg, params, batch), "batch", "seq", "embed")
+    x, _ = _run_blocks(cfg, params["blocks"], x, prompt_positions(x))
     return _logits(cfg, params, x)
 
 
@@ -184,8 +193,8 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> KVCache:
 
 def forward_prefill(cfg, params, batch, cache: KVCache):
     """Prompt pass: fills cache[:, :, :, :S), returns (last_logits, cache)."""
-    x, positions = _embed_inputs(cfg, params, batch)
-    x, new_cache = _run_blocks(cfg, params["blocks"], x, positions,
+    x = _embed_inputs(cfg, params, batch)
+    x, new_cache = _run_blocks(cfg, params["blocks"], x, prompt_positions(x),
                                caches=cache)
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits, new_cache
@@ -202,7 +211,7 @@ def forward_prefill_chunk(cfg, params, tokens, cache: KVCache, pos0: int):
     Tokens only, as in the JAX package: no frontend takes this path.
     """
     pos0 = int(pos0)
-    x = params["embed"]["tokens"][tokens]
+    x = settle(params["embed"]["tokens"][tokens])
     b, c = tokens.shape
     positions = (pos0 + torch.arange(c, dtype=torch.int32, device=x.device)
                  )[None].expand(b, c)
@@ -214,7 +223,7 @@ def forward_prefill_chunk(cfg, params, tokens, cache: KVCache, pos0: int):
 def forward_decode(cfg, params, token, cache: KVCache, pos):
     """One decode step. token [B] int, pos an int or per-slot [B] int
     tensor.  Returns (logits [B, 1, V], new_cache)."""
-    x = params["embed"]["tokens"][token][:, None, :]     # [B, 1, d]
+    x = settle(params["embed"]["tokens"][token])[:, None, :]     # [B, 1, d]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos[:, None].to(torch.int32)
     else:

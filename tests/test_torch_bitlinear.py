@@ -186,3 +186,34 @@ def test_grouped_tile_gemm_rules():
         ops.grouped_tile_gemm(x, wp, out, [(0, 0, 64)], bits=3)
     with pytest.raises(TypeError):
         dense_grouped_tile_gemm(x.float(), wp, out, [(0, 0, 64)])
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_bitlinear_apply_matches_jax(bits):
+    """The full serving op (quantize the activations, integer GEMM,
+    dequantize) against the JAX package's: the activations' int8 codes and
+    the int32 product are exact; the float output is within float32
+    rounding of the dequantization (rtol 1e-6)."""
+    rng = np.random.default_rng(bits)
+    m, k, n = 16, 256, 96
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.integers(*LOHI[bits], size=(k, n)).astype(np.int8)
+    wp = np.array(PACK[bits](jnp.asarray(w)))
+    scale = np.float32(0.037)
+    want = np.asarray(jax_ops.bitlinear_apply(
+        jnp.asarray(x), jnp.asarray(wp), jnp.asarray(scale), bits=bits))
+    tx = torch.from_numpy(x)
+    got = ops.bitlinear_apply(tx, torch.from_numpy(wp),
+                              torch.tensor(scale), bits=bits)
+    # the integer part: the same codes and the exact int32 product
+    s = np.max(np.abs(x), axis=-1, keepdims=True) / 127.0 + 1e-5
+    xq = np.clip(np.round(x / s), -128, 127).astype(np.int8)
+    ts = torch.amax(tx.abs(), dim=-1, keepdim=True) / 127.0 + 1e-5
+    txq = torch.clamp(torch.round(tx / ts), -128, 127).to(torch.int8)
+    np.testing.assert_array_equal(txq.numpy(), xq)
+    acc = ops.bitlinear_matmul(txq, torch.from_numpy(wp), bits=bits)
+    np.testing.assert_array_equal(acc.numpy(),
+                                  xq.astype(np.int32) @ w.astype(np.int32))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())

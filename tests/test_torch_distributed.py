@@ -204,6 +204,40 @@ WORKER_SCRIPT = textwrap.dedent("""
         out.backward(t(inp["dout"]))
         res["cp_out"] = out.detach().numpy()
         res["dq"], res["dk"], res["dv"] = (x.grad.numpy() for x in (q, k, v))
+        # a reduced BitNet's loss and gradients on DTensor parameters
+        # placed by place_params on the 2 x 2 mesh, against the plain run
+        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.distributed.sharding import (
+            param_shardings, place_params)
+        from repro_torch.train.optimizer import tree_leaves
+        from repro_torch.train.train_loop import value_and_grad
+        mesh22 = make_host_mesh((2, 2), ("data", "model"))
+        cfg_d = configs.reduced(configs.get_config("bitnet-1.58b")).replace(
+            dtype="float32", quantization="none")
+        api_d = build_model(cfg_d, device="cpu")
+        params = api_d.init(0)
+        batch_d = {kk: torch.from_numpy(vv) for kk, vv in synthetic_batch(
+            cfg_d, batch=2, seq=seq, step=0).items()}
+        loss_p, grads_p = value_and_grad(api_d.loss, params, batch_d)
+        placed = place_params(params, mesh22, param_shardings(
+            cfg_d, mesh22, params, fsdp=True), dm)
+        batch_dt = {kk: distribute_tensor(vv, dm, [Shard(0), Replicate()])
+                    for kk, vv in batch_d.items()}
+        with use_rules(make_rules(cfg_d, mesh22, ShapeConfig(
+                "t", seq, 2, "train"))), implicit_replication():
+            loss_d, grads_d = value_and_grad(api_d.loss, placed, batch_dt)
+        res["dt_loss"], res["plain_loss"] = (
+            loss_d.full_tensor().numpy(), loss_p.numpy())
+        for i, (gd, gp) in enumerate(zip(tree_leaves(grads_d),
+                                         tree_leaves(grads_p))):
+            res[f"dt_grad{i}"] = gd.full_tensor().numpy()
+            res[f"plain_grad{i}"] = gp.numpy()
+        res["dt_placed"] = np.array(sum(
+            any(pl.is_shard() for pl in t.placements)
+            for t in tree_leaves(placed)))
         # DTensor gradients through build_train_step(grad_shardings=...),
         # and one layer's DTensor parameters through constrain_layer_params
         class Api:
@@ -489,6 +523,26 @@ def test_grad_shardings_and_layer_params_lay_dtensors_out(runs):
 # --------------------------------------------------------------------------- #
 # one process: helpers, refusals, world size 1
 # --------------------------------------------------------------------------- #
+
+def test_dtensor_parameters_train_as_the_plain_run(runs):
+    """A reduced BitNet (float32, no quantization) on DTensor parameters
+    placed by place_params on the 2 x 2 (data, model) mesh, its batch on
+    the data axis, the rules of a train shape active: the loss and every
+    gradient equal the plain run's at the train tolerances (loss rtol
+    1e-5; gradients rtol 1e-4, atol 1e-5 x max|g|: the shards sum their
+    matmuls in another order)."""
+    for r in runs["ranks"]:
+        assert int(r["dt_placed"]) > 0          # some leaves are split
+        np.testing.assert_allclose(r["dt_loss"], r["plain_loss"], rtol=1e-5)
+        grads = sorted(k[len("dt_grad"):] for k in r if k.startswith(
+            "dt_grad"))
+        assert grads
+        for i in grads:
+            want = r[f"plain_grad{i}"]
+            np.testing.assert_allclose(
+                r[f"dt_grad{i}"], want, rtol=1e-4,
+                atol=1e-5 * max(float(np.abs(want).max()), 1e-30))
+
 
 def test_bubble_fraction():
     from repro.distributed.pipeline import bubble_fraction as jax_bubble

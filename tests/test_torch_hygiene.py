@@ -51,6 +51,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.train import AdamW, Checkpointer, TrainingRunner\n"
         "from repro_torch.convert import train_state_from_jax\n"
         "import repro_torch.distributed, repro_torch.launch\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.hlo_cost\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.report\n"
+        "import repro_torch.kernels.cost\n"
         "import repro_torch.distributed.collectives\n"
         "import repro_torch.distributed.pipeline\n"
         "from repro_torch.legion import ShardedExecutor\n"

@@ -153,3 +153,55 @@ def test_wrapper_refuses_bad_calls():
 ])
 def test_scratch_sizes(nb, nh, s, n, p, chunk, want):
     assert ops.scratch_sizes(nb, nh, s, n, p, chunk) == want
+
+
+def _grouped_inputs(bsz, h, s, p, n, seed):
+    """dta [B,H,S], dtx [B,H,S,P] and the group-shared b, c [B,S,N]."""
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.001, 0.1, size=(bsz, h, s)).astype(np.float32)
+    a = -np.exp(rng.standard_normal((h,))).astype(np.float32)
+    x = rng.standard_normal((bsz, h, s, p)).astype(np.float32)
+    b = rng.standard_normal((bsz, s, n)).astype(np.float32)
+    c = rng.standard_normal((bsz, s, n)).astype(np.float32)
+    return dt * a[None, :, None], x * dt[..., None], b, c
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+@pytest.mark.parametrize("bsz,h,s,p,n,chunk", [(2, 3, 128, 16, 8, 32),
+                                               (1, 4, 96, 8, 16, 24)])
+def test_grouped_scan_matches_jax(bsz, h, s, p, n, chunk, return_state):
+    """ssd_grouped_scan (the JAX model's default scan, the dry run's train
+    route) against the JAX function at 1e-4, with and without the
+    terminal state."""
+    from repro.kernels.ssd.ref import ssd_grouped_scan as jax_grouped
+    from repro_torch.kernels.ssd.ref import ssd_grouped_scan
+
+    (jd, jx, jb, jc), (td, tx, tb, tc) = _both(
+        _grouped_inputs(bsz, h, s, p, n, s + n))
+    want = jax_grouped(jd, jx, jb, jc, chunk=chunk,
+                       return_state=return_state)
+    got = ssd_grouped_scan(td, tx, tb, tc, chunk=chunk,
+                           return_state=return_state)
+    if not return_state:
+        want, got = (want,), (got,)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_grouped_scan_is_the_chunked_scan_with_shared_b_c():
+    """The grouped scan equals the per-head chunked plain version on B and
+    C expanded over the heads, and differentiates."""
+    from repro_torch.kernels.ssd.ref import ssd_grouped_scan
+
+    d, x, b, c = (torch.from_numpy(a) for a in
+                  _grouped_inputs(2, 3, 64, 8, 8, 7))
+    x.requires_grad_()
+    y, h = ssd_grouped_scan(d, x, b, c, chunk=16, return_state=True)
+    flat = lambda t: t.reshape(6, *t.shape[2:])            # noqa: E731
+    y_ref, h_ref = ssd_chunked_ref(
+        flat(d), flat(x.detach()), flat(b[:, None].expand(2, 3, 64, 8)),
+        flat(c[:, None].expand(2, 3, 64, 8)), chunk=16, return_state=True)
+    torch.testing.assert_close(flat(y.detach()), y_ref, **TOL)
+    torch.testing.assert_close(flat(h.detach()), h_ref, **TOL)
+    y.sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()

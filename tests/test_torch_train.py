@@ -359,6 +359,44 @@ def test_lr_1e3_on_a_repeated_sequence_tracks_jax(size, monkeypatch, capsys):
               f"lr 1e-3, one sequence x 6 steps: {losses}")
 
 
+def test_compressed_step_at_lr_3e5_tracks_jax(tmp_path, capsys):
+    """The full-width card run's compressed recipe (one rank, lr 3e-5, one
+    sequence repeated for 6 steps) at BitNet-1.58B's d_ff / d_model and
+    head width with d_model 1024, without quantization: JAX's compressed
+    step on a one-device pod mesh and the port's in a one-rank gloo group.
+    Each step's loss equals JAX's within rel 1e-5, so a rise of the loss
+    (the card run's 10.823, 7.971, 9.853, 7.475) is the recipe's on both
+    sides; the two trajectories are printed (``pytest -s``)."""
+    from repro.compat import make_mesh
+    from repro.train.train_loop import (
+        build_compressed_train_step as jax_compressed_step)
+    from repro_torch.distributed import process_group
+    from repro_torch.train.train_loop import build_compressed_train_step
+
+    jcfg, tcfg = _configs(quantization="none", d_model=1024, d_ff=2752,
+                          n_heads=8, kv_heads=8, head_dim=128)
+    japi, tapi = jax_build(jcfg), build_model(tcfg, device="cpu")
+    jopt, topt = JaxAdamW(lr=3e-5), train.AdamW(lr=3e-5)
+    jst = jax_init_state(japi, jopt, jax.random.PRNGKey(0), compressed=True)
+    tst = train_state_from_jax(jax.tree.map(np.asarray, jst), device="cpu")
+    jstep = jax.jit(jax_compressed_step(japi, jopt,
+                                        make_mesh((1,), ("pod",))))
+    jb, tb = _batch(jcfg, 2, 64, 0)
+    losses = {"jax": [], "port": []}
+    with process_group(str(tmp_path / "store"), 0, 1, device="cpu"):
+        tstep = build_compressed_train_step(tapi, topt)
+        for _ in range(6):
+            jst, jm = jstep(jst, jb)
+            tst, tm = tstep(tst, tb)
+            losses["jax"].append(float(jm["loss"]))
+            losses["port"].append(float(tm["loss"]))
+            assert losses["port"][-1] == pytest.approx(losses["jax"][-1],
+                                                       rel=1e-5)
+    with capsys.disabled():
+        print(f"\n{tcfg.layers} x {tcfg.d_model}, compressed, lr 3e-5, one "
+              f"sequence x 6 steps: {losses}")
+
+
 def test_grad_accum_equivalence():
     """As tests/test_train.py::test_grad_accum_equivalence: two
     microbatches of 2 against one batch of 4."""
