@@ -86,6 +86,17 @@ Phases, each printing one JSON line:
              Mamba2-130m's (24 heads, N = 128, P = 64, S = 1024): outputs
              and state within rtol / atol 1e-4 (float32 summed in another
              order).  Times the kernel, the plain version, the bound.
+9b. ssd_bwd — the SSD backward kernels (csrc/ssd_bwd.cu) against the
+             plain backward (ssd_chunked_bwd_ref, on the card) from the
+             forward kernel's own scratch, B and C [B, S, N] shared by the
+             heads: Zamba2-7B's train shape (112 heads, N = P = 64,
+             S = 4096, chunk 128), Mamba2-130m's (24 heads, N = 128), and a
+             1000-token Zamba2 prompt (a short last chunk) with the
+             terminal state's gradient: every gradient within rtol 1e-4 /
+             atol 1e-5 x max|g|, two calls bit-equal, and ssd() under
+             autograd launching the backward once with the same bits.
+             Times the backward, its device time, the plain backward, the
+             bound (no single PyTorch call computes it: library_ms null).
 10. flash   — the flash-attention kernel against its plain version at
              Zamba2-7B's long-prompt prefill (B = 1, H = Hkv = 32,
              S = 4096, d = 112, causal, bf16 against the plain version in
@@ -186,6 +197,22 @@ Phases, each printing one JSON line:
              by remat, per step) and 128 backward calls; per-step seconds,
              tokens/s, peak memory, and one more step traced by
              torch.profiler (device idle share, top device kernels).
+
+18b. ssm_train_model — reduced Mamba2-130m and Zamba2-7B (float32, no
+             quantization, 3072-token sequences, so Zamba2's attention takes
+             the flash path) on the card against the CPU from the same
+             state: loss within rel 1e-5, every gradient leaf within rtol
+             1e-4 / atol 1e-5 * max|g|, then 2 train steps, losses within
+             rel 1e-5; exact SSD and flash launch counts (ssm_launches).
+18c. ssm_train — Mamba2-130m at full size and Zamba2-7B at full width cut
+             to SSM_TRAIN_ZAMBA2_LAYERS = 12 of its 81 layers (bf16,
+             fake-quant with STE, remat per block; random weights from a
+             seeded torch.Generator) train 4 AdamW steps (SSM_TRAIN_LR) on
+             one 4096-token sequence: finite losses, each below the one
+             before; per step 2 SSD forward launches for each remat'd SSM
+             layer (Zamba2's last period is not remat'd, as in JAX: one)
+             and one backward, flash as in train; per-step seconds,
+             tokens/s, peak memory, one more step traced.
 
 19. dist    — a one-rank NCCL group on the card (NCCL refuses two ranks
              on one device; the multi-rank paths are held to the JAX
@@ -321,11 +348,15 @@ def all_device_us(fn, iters: int, attempts: int = 3):
     return None
 
 
+# every source of src/repro_torch/csrc, each built by its own nvcc
+SOURCES = ("bitlinear", "block_sparse", "ssd", "ssd_bwd", "flash_attention",
+           "flash_attention_bwd")
+
+
 def phase_build():
     from repro_torch.kernels import build
 
-    sources = ["bitlinear", "block_sparse", "ssd", "flash_attention",
-               "flash_attention_bwd"]
+    sources = list(SOURCES)
     t0 = time.perf_counter()
     build.build(sources)
     seconds = time.perf_counter() - t0
@@ -1352,6 +1383,14 @@ def phase_zoo():
     return launches
 
 
+# the SSD scan's kernels, matched by exact name in the profiler's trace:
+# three a forward call, and a backward call's four (three where the heads
+# do not share B and C, whose sum over the heads then needs no kernel)
+SSD_KERNELS = ("ssd_kernel_state", "ssd_kernel_pass", "ssd_kernel_scan")
+SSD_BWD_KERNELS = ("ssd_bwd_kernel_state", "ssd_bwd_kernel_pass",
+                   "ssd_bwd_kernel_scan", "ssd_bwd_kernel_headsum")
+
+
 def ssd_operands(nb, nh, s, n, p, seed):
     """dta [B, H, S], dtx [B, H, S, P] and head-shared B, C, float32 on the
     card in the layout the Mamba-2 block hands over: dta and dtx as
@@ -1418,14 +1457,124 @@ def phase_ssd():
             "chunk": chunk, "max_abs_err": err,
             "y_max_abs": float(y_ref.abs().max()),
             "ms": cuda_ms(call, iters),
-            "device_us": device_us(call, 5, (
-                "ssd_kernel_state", "ssd_kernel_pass", "ssd_kernel_scan"),
-                per_call=3),
+            "device_us": device_us(call, 5, SSD_KERNELS,
+                                   per_call=len(SSD_KERNELS)),
             "plain_ms": cuda_ms(lambda i: plain(), 5),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
         })
     for r in rows:
         emit(dict(phase="ssd", **r))
+    return rows
+
+
+# the SSD backward against its plain version: rtol 1e-4, atol 1e-5 x the
+# largest |gradient| of each output (float32 summed in another order; a
+# dta gradient sums a chunk's terms and runs to a few hundred)
+SSD_BWD_RTOL, SSD_BWD_ATOL_MAX = 1e-4, 1e-5
+SSD_BWD_SHAPES = (
+    # label, B, H, S, N, P, chunk, with the terminal state's gradient
+    ("zamba2-7b train", 1, 112, 4096, 64, 64, 128, False),
+    ("mamba2-130m train", 1, 24, 4096, 128, 64, 128, False),
+    # a short prompt: 7 whole chunks and one of 104 steps
+    ("zamba2-7b short prompt", 1, 112, 1000, 64, 64, 128, True),
+)
+
+
+def phase_ssd_bwd():
+    """The SSD backward kernels (csrc/ssd_bwd.cu) against the plain
+    backward (ssd_chunked_bwd_ref) on the card, from the forward kernel's
+    own scratch, B and C shared by the heads as the model passes them
+    ([B, S, N]): every gradient within SSD_BWD_RTOL / SSD_BWD_ATOL_MAX x
+    max|g|, two calls equal bit for bit; then the same through ssd() under
+    autograd, which must launch the backward once and give the same bits.
+    Times the backward call, its device time, the plain backward, the
+    bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cost import ssd_bwd_bound
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    rows = []
+    for label, nb, nh, s, n, p, chunk, with_dh in SSD_BWD_SHAPES:
+        dta, dtx, b4, c4 = ssd_operands(nb, nh, s, n, p, s + n + 1)
+        bm, cm = b4[:, 0], c4[:, 0]                      # [B, S, N]
+        rng = np.random.default_rng(s + p)
+        # dy as autograd hands it over for the model's y: [B, S, H, P]
+        # memory seen as [B, H, S, P]
+        dy = torch.from_numpy(rng.standard_normal((nb, s, nh, p)).astype(
+            np.float32)).cuda().transpose(1, 2)
+        dh = (torch.from_numpy(rng.standard_normal((nb, nh, n, p)).astype(
+            np.float32)).cuda() if with_dh else None)
+        scratch = ssd_ops._scratch(dtx, n, chunk)
+        _, h = ssd_ops._launch(dta, dtx, b4, c4, chunk, with_dh, scratch)
+        call = lambda i: ssd_ops._launch_bwd(              # noqa: E731
+            dta, dtx, bm, cm, dy, scratch, h, dh, chunk)
+        before = ssd_ops.LAUNCHES["backward_float32"]
+        got, again = call(0), call(1)
+        flat = lambda t: t.reshape(nb * nh, *t.shape[2:])  # noqa: E731
+
+        def plain():
+            g = ssd_chunked_bwd_ref(
+                flat(dta), flat(dtx), flat(b4), flat(c4), flat(dy),
+                chunk=chunk, dh_final=flat(dh) if with_dh else None)
+            return (g[0].reshape(nb, nh, s), g[1].reshape(nb, nh, s, p),
+                    g[2].reshape(nb, nh, s, n).sum(1),
+                    g[3].reshape(nb, nh, s, n).sum(1))
+
+        want = plain()
+        torch.cuda.synchronize()
+        if ssd_ops.LAUNCHES["backward_float32"] != before + 2:
+            raise AssertionError(f"ssd_bwd {label}: launches "
+                                 f"{ssd_ops.LAUNCHES}")
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {}
+        for name, g, w in zip(("ddta", "ddtx", "db", "dc"), got, want):
+            errs[name] = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            if not torch.allclose(g, w, rtol=SSD_BWD_RTOL,
+                                  atol=SSD_BWD_ATOL_MAX * scale):
+                raise AssertionError(f"ssd_bwd {label} {name}: max abs err "
+                                     f"{errs[name]} (max |want| {scale})")
+        if not bit_equal:
+            raise AssertionError(f"ssd_bwd {label}: two calls differ")
+        del want, again
+        iters = 10 if s > 1024 else 30
+        bound, by = ssd_bwd_bound(nb, nh, s, n, p, chunk, True, with_dh)
+        rows.append({
+            "shape": label, "b": nb, "h": nh, "s": s, "n": n, "p": p,
+            "chunk": chunk, "shared_bc": True, "dh_final": with_dh,
+            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "grad_max_abs": {k: float(g.abs().max()) for k, g in zip(
+                ("ddta", "ddtx", "db", "dc"), got)},
+            "tolerance": {"rtol": SSD_BWD_RTOL,
+                          "atol": f"{SSD_BWD_ATOL_MAX} * max|g|"},
+            "bit_equal": bit_equal,
+            "ms": cuda_ms(call, iters),
+            "device_us": device_us(call, 3, SSD_BWD_KERNELS,
+                                   per_call=len(SSD_BWD_KERNELS)),
+            "plain_ms": cuda_ms(lambda i: plain(), 2),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+        })
+        if with_dh:
+            # through ssd() under autograd: the Function's backward is the
+            # backward kernel, once, on the same values
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (dta, dtx, bm, cm)]
+            before = dict(ssd_ops.LAUNCHES)
+            y, hfin = ssd_ops.ssd(*leaves, chunk=chunk, return_state=True)
+            grads = torch.autograd.grad((y, hfin), leaves, (dy, dh))
+            torch.cuda.synchronize()
+            launched = {k: ssd_ops.LAUNCHES[k] - before[k] for k in before}
+            if launched != {"float32": 1, "backward_float32": 1}:
+                raise AssertionError(f"ssd_bwd autograd launches {launched}")
+            if not all(torch.equal(a, b) for a, b in zip(grads, got)):
+                raise AssertionError("ssd_bwd: ssd() under autograd differs "
+                                     "from the direct backward call")
+            rows[-1]["autograd_bit_equal"] = True
+    for r in rows:
+        emit(dict(phase="ssd_bwd", **r))
     return rows
 
 
@@ -2617,6 +2766,44 @@ def phase_train_model():
     return launches
 
 
+def traced_train_step(step, state, batch, seconds):
+    """One more train step under torch.profiler, after the untraced steps
+    that took ``seconds``: (state, its wall seconds, device time, the
+    device's idle share against its own wall and against the untraced
+    steps' mean, the ten kernels with the most device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        traced_s = time.perf_counter() - t
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            name = kernel_name(evt.name) or evt.name
+            by_name[name] = by_name.get(name, 0.0) + \
+                evt.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # the profiler slows the host, so the traced step's wall is longer than
+    # an untraced one's; the device time against the untraced steps' mean
+    # is the other reading of the idle share
+    untraced_ms = sum(seconds[1:]) / (len(seconds) - 1) * 1e3
+    return state, {
+        "wall_seconds": traced_s,
+        "device_ms": device_ms if by_name else None,
+        "device_idle_share": (1 - device_ms / (traced_s * 1e3))
+        if by_name else None,
+        "idle_share_vs_untraced_step": (1 - device_ms / untraced_ms)
+        if by_name else None,
+        "top_device_ms": top}
+
+
 def phase_train():
     """Full-width BitNet-1.58B (bf16, fake-quant with STE, remat per block)
     trains 4 steps of one 4096-token sequence through build_train_step;
@@ -2624,8 +2811,6 @@ def phase_train():
     import math
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batch
@@ -2673,25 +2858,7 @@ def phase_train():
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss did not fall: {losses}")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        state, m = step(state, batch)
-        float(m["loss"])
-        traced_s = time.perf_counter() - t
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            name = kernel_name(evt.name) or evt.name
-            by_name[name] = by_name.get(name, 0.0) + \
-                evt.time_range.elapsed_us() / 1e3
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    # the profiler slows the host, so the traced step's wall is longer than
-    # an untraced one's; the device time against the untraced steps' mean
-    # is the other reading of the idle share
-    untraced_ms = sum(seconds[1:]) / (steps - 1) * 1e3
+    state, traced = traced_train_step(step, state, batch, seconds)
     emit({"phase": "train", "config": cfg.name, "params": n_params,
           "dtype": cfg.dtype, "remat": cfg.remat, "batch": 1, "seq": seq,
           "steps": steps, "lr": TRAIN_LR, "init_seconds": init_s,
@@ -2701,15 +2868,7 @@ def phase_train():
           "peak_memory_bytes": peak, "flash_launches": got,
           "flash_kernels_per_call": {
               "forward": 1, "backward": FLASH_BWD_KERNELS_PER_CALL},
-          "traced_step": {"wall_seconds": traced_s,
-                          "device_ms": device_ms if by_name else None,
-                          "device_idle_share": (1 - device_ms
-                                                / (traced_s * 1e3))
-                          if by_name else None,
-                          "idle_share_vs_untraced_step": (
-                              1 - device_ms / untraced_ms)
-                          if by_name else None,
-                          "top_device_ms": top}})
+          "traced_step": traced})
     # the launch phase's check: the FLOPs of one more step, counted by
     # torch's FlopCounterMode (the kernels' custom ops by their registered
     # formulas), after every number above is taken
@@ -2721,6 +2880,219 @@ def phase_train():
     return got, {"peak_memory_bytes": peak, "flops": fc.get_total_flops(),
                  "step_seconds": sum(seconds[1:]) / (steps - 1),
                  "seq": seq, "batch": 1}
+
+
+def ssm_launches(cfg, passes: int, remat: bool):
+    """The SSD and flash launches ``passes`` forward-and-backward passes of
+    ``cfg``'s train step make, by LAUNCHES key: a remat'd block runs its
+    forward twice (once more in the backward).  Mamba-2 remats every block;
+    the hybrid remats each period of a shared attention and ``attn_every``
+    Mamba blocks but the last (the JAX package's scan, models/hybrid.py)."""
+    from repro_torch.models.hybrid import n_attn_apps
+
+    twice = (lambda n: 2 * n) if remat else (lambda n: n)  # noqa: E731
+    if cfg.family == "ssm":
+        ssd_fwd, flash_fwd, apps = twice(cfg.layers), 0, 0
+    else:
+        apps = n_attn_apps(cfg)
+        last = cfg.layers - (apps - 1) * cfg.attn_every
+        ssd_fwd = twice(cfg.layers - last) + last
+        flash_fwd = twice(apps - 1) + 1
+    kind = "bfloat16" if cfg.dtype == "bfloat16" else "float32"
+    want = {"ssd": {"float32": passes * ssd_fwd,
+                    "backward_float32": passes * cfg.layers},
+            "flash": {}}
+    if apps:
+        want["flash"] = {f"lse_{kind}": passes * flash_fwd,
+                         f"backward_{kind}": passes * apps}
+    return want
+
+
+def _launch_counts():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    return {"ssd": {k: v for k, v in ssd_ops.LAUNCHES.items() if v},
+            "flash": {k: v for k, v in fa.LAUNCHES.items() if v}}
+
+
+def _reset_launches():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    ssd_ops.reset_launches()
+    fa.reset_launches()
+
+
+def phase_ssm_train_model():
+    """Reduced Mamba2-130m and Zamba2-7B (float32, no quantization,
+    3072-token sequences, so the hybrid's attention takes the flash path)
+    train on the card against the CPU from the same state: the loss within
+    rel 1e-5 and every gradient leaf within rtol 1e-4 / atol 1e-5 * max|g|
+    (the SSD and flash backward kernels against their plain versions), then
+    2 train steps, loss within rel 1e-5; exact SSD and flash launches."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamW, build_train_step, init_train_state
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_loop import TrainState, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    s, steps = 3072, 2
+    out = {}
+    for arch in ("mamba2-130m", "zamba2-7b"):
+        cfg = reduced(get_config(arch)).replace(
+            dtype="float32", quantization="none")
+        cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
+        opt = AdamW(lr=1e-3)
+        state_cpu = init_train_state(cpu, opt, 0)
+        params = params_from_jax(_numpy_tree(state_cpu.params))
+        state_gpu = TrainState(params, opt.init(params))
+
+        def batch(step, device):
+            return {k: torch.from_numpy(v).to(device) for k, v in
+                    synthetic_batch(cfg, batch=1, seq=s, step=step).items()}
+
+        _reset_launches()
+        l_cpu, g_cpu = value_and_grad(cpu.loss, state_cpu.params,
+                                      batch(0, "cpu"))
+        l_gpu, g_gpu = value_and_grad(gpu.loss, state_gpu.params,
+                                      batch(0, "cuda"))
+        torch.cuda.synchronize()
+        grad_launches = _launch_counts()
+        grad_err = 0.0
+        for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)):
+            a = a.cpu()
+            grad_err = max(grad_err, float((a - b).abs().max()))
+            if not torch.allclose(a, b, rtol=1e-4,
+                                  atol=1e-5 * float(b.abs().max())):
+                raise AssertionError(f"ssm_train_model {arch} grad: max abs "
+                                     f"diff {float((a - b).abs().max())}")
+        if abs(float(l_gpu) - float(l_cpu)) > 1e-5 * abs(float(l_cpu)):
+            raise AssertionError(f"ssm_train_model {arch}: loss "
+                                 f"{float(l_gpu)} on the card, "
+                                 f"{float(l_cpu)} on the CPU")
+        losses = []
+        step_cpu = build_train_step(cpu, opt)
+        step_gpu = build_train_step(gpu, opt)
+        for i in range(steps):
+            state_cpu, m_cpu = step_cpu(state_cpu, batch(i, "cpu"))
+            state_gpu, m_gpu = step_gpu(state_gpu, batch(i, "cuda"))
+            lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
+            losses.append((lg, lc))
+            if abs(lg - lc) > 1e-5 * abs(lc):
+                raise AssertionError(f"ssm_train_model {arch} step {i}: "
+                                     f"loss {lg} on the card, {lc} on the "
+                                     "CPU")
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        want = ssm_launches(cfg, 1 + steps, cfg.remat != "none")
+        if launches != want:
+            raise AssertionError(f"ssm_train_model {arch} launches "
+                                 f"{launches}, want {want}")
+        want_grad = ssm_launches(cfg, 1, cfg.remat != "none")
+        if grad_launches != want_grad:
+            raise AssertionError(f"ssm_train_model {arch} grad launches "
+                                 f"{grad_launches}, want {want_grad}")
+        emit({"phase": "ssm_train_model", "config": cfg.name,
+              "dtype": "float32", "layers": cfg.layers, "seq": s,
+              "batch": 1, "loss_card_cpu": (float(l_gpu), float(l_cpu)),
+              "losses_card_cpu": losses, "grad_max_abs_diff": grad_err,
+              "tolerance": {"loss_rel": 1e-5, "grad_rtol": 1e-4,
+                            "grad_atol": "1e-5 * max|g|"},
+              "launches": launches})
+        out[arch] = launches
+    return out
+
+
+# Zamba2-7B trains at full width cut to this many of its 81 layers: 1.26 B
+# parameters, two applications of the shared attention (attn_every 6); the
+# whole model (6.64 B) does not train on one 80 GB card (PERF.md §4)
+SSM_TRAIN_ZAMBA2_LAYERS = 12
+# AdamW's learning rate of each SSM train run: of 1e-5, 2e-5, 3e-5 (Zamba2,
+# 12 layers) and 3e-5, 1e-4, 3e-4 (Mamba2-130m) on one repeated 4096-token
+# sequence, the largest at which the loss fell at each of 6 steps; Zamba2's
+# rose at its third step at 2e-5 and 3e-5 (tools/train_probe.py lr --arch
+# ...; PERF.md §6)
+SSM_TRAIN_LR = {"mamba2-130m": 3e-4, "zamba2-7b": 1e-5}
+
+
+def phase_ssm_train():
+    """Mamba2-130m at full size, then Zamba2-7B at full width and
+    SSM_TRAIN_ZAMBA2_LAYERS layers (bf16, fake-quant with STE, remat per
+    block), each 4 AdamW steps (lr SSM_TRAIN_LR) of one 4096-token
+    sequence through build_train_step: finite losses, each below the one
+    before, exact SSD and flash launches; per-step seconds, tokens/s, peak
+    memory, and one more step traced."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamW, build_train_step, init_train_state
+
+    seq, steps = 4096, 4
+    out = {}
+    for cfg in (get_config("mamba2-130m"),
+                get_config("zamba2-7b").replace(
+                    layers=SSM_TRAIN_ZAMBA2_LAYERS)):
+        if (cfg.dtype, cfg.remat, cfg.quantization) != ("bfloat16", "block",
+                                                        "bitnet"):
+            raise AssertionError(f"{cfg.name} config {cfg}")
+        api = build_model(cfg)
+        lr = SSM_TRAIN_LR[cfg.name]
+        opt = AdamW(lr=lr)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=api.device)
+        gen.manual_seed(0)
+        state = init_train_state(api, opt, gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(state.params))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+            cfg, batch=1, seq=seq, step=0).items()}
+        step = build_train_step(api, opt)
+        _reset_launches()
+        losses, norms, seconds = [], [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            seconds.append(time.perf_counter() - t)
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = ssm_launches(cfg, steps, True)
+        if launches != want:
+            raise AssertionError(f"ssm_train {cfg.name} launches {launches}"
+                                 f", want {want}")
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"ssm_train {cfg.name}: losses {losses}, "
+                                 f"grad norms {norms}")
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"ssm_train {cfg.name}: loss did not fall "
+                                 f"at every step: {losses}")
+        state, traced = traced_train_step(step, state, batch, seconds)
+        emit({"phase": "ssm_train", "config": cfg.name, "params": n_params,
+              "layers": cfg.layers, "d_model": cfg.d_model,
+              "dtype": cfg.dtype, "remat": cfg.remat, "batch": 1, "seq": seq,
+              "steps": steps, "lr": lr, "init_seconds": init_s,
+              "losses": losses, "grad_norms": norms, "step_seconds": seconds,
+              "tokens_per_second": seq / (sum(seconds[1:]) / (steps - 1)),
+              "peak_memory_bytes": peak, "launches": launches,
+              "traced_step": traced})
+        out[cfg.name] = launches
+        del api, state, step, m
+    return out
 
 
 # phase launch: the dry run's one-card prediction of phase train's step
@@ -3261,6 +3633,7 @@ def main() -> int:
     del params, backend                 # release BitNet-1.58B
     torch.cuda.empty_cache()
     ssd_rows = run(phase_ssd)
+    ssd_bwd_rows = run(phase_ssd_bwd)
     fa_rows = run(phase_flash)
     bwd_rows = run(phase_flash_bwd)
     offset_rows, offset_launches = run(phase_flash_offset)
@@ -3277,6 +3650,10 @@ def main() -> int:
     train_model_launches = run(phase_train_model)
     torch.cuda.empty_cache()
     train_launches, train_step = run(phase_train)
+    torch.cuda.empty_cache()
+    ssm_launches_by_phase = {"ssm_train_model": run(phase_ssm_train_model)}
+    torch.cuda.empty_cache()
+    ssm_launches_by_phase["ssm_train"] = run(phase_ssm_train)
     torch.cuda.empty_cache()
     run(phase_launch, train_step)
     from repro_torch.distributed import process_group
@@ -3304,8 +3681,50 @@ def main() -> int:
                     "flash_offset": offset_launches["backward_bfloat16"],
                     "dist": dist_launches["backward_bfloat16"],
                     "train_compressed": tc_launches["backward_bfloat16"]}
+    # the SSM train phases' launches, summed over their two models
+    ssm_sums = {phase: {kernel: {} for kernel in ("ssd", "flash")}
+                for phase in ssm_launches_by_phase}
+    for phase, by_arch in ssm_launches_by_phase.items():
+        for counts in by_arch.values():
+            for kernel, by_key in counts.items():
+                for key, n in by_key.items():
+                    ssm_sums[phase][kernel][key] = \
+                        ssm_sums[phase][kernel].get(key, 0) + n
+    for phase, sums in ssm_sums.items():
+        flash_launches[phase] = sum(n for key, n in sums["flash"].items()
+                                    if key.startswith("lse_"))
+        bwd_launches[phase] = sum(n for key, n in sums["flash"].items()
+                                  if key.startswith("backward_"))
+    ssd_launches = {"hybrid_serve": hy_launches["ssd"]}
+    ssd_bwd_launches = {}
+    for phase, sums in ssm_sums.items():
+        ssd_launches[phase] = sums["ssd"].get("float32", 0)
+        ssd_bwd_launches[phase] = sums["ssd"].get("backward_float32", 0)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
 
+    # the SSD backward (ported PR 22): the counterpart of JAX's autodiff of
+    # its chunked scan, ssd_grouped_scan in the JAX model's train step
+    ssd_bwd_entry = {
+        "name": "ssd_bwd", "route": "cuda", "ported": 22,
+        "source": "src/repro_torch/csrc/ssd_bwd.cu",
+        "replaces": "src/repro/kernels/ssd/ref.py:100",
+        "kernels_per_call": len(SSD_BWD_KERNELS),
+        "launches": sum(ssd_bwd_launches.values()),
+        "launches_by_phase": ssd_bwd_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_bwd_rows),
+        "bit_equal": all(r["bit_equal"] for r in ssd_bwd_rows),
+        "shape": {k: ssd_bwd_rows[0][k] for k in (
+            "shape", "b", "h", "s", "n", "p", "chunk", "shared_bc")},
+        "ms": ssd_bwd_rows[0]["ms"],
+        "device_us": ssd_bwd_rows[0]["device_us"],
+        "plain_ms": ssd_bwd_rows[0]["plain_ms"],
+        "bound_ms": ssd_bwd_rows[0]["bound_ms"],
+        "bound_by": ssd_bwd_rows[0]["bound_by"], "library_ms": None,
+        "other_shapes": [{k: r[k] for k in (
+            "shape", "h", "s", "n", "p", "dh_final", "max_abs_err", "ms",
+            "device_us", "plain_ms", "bound_ms", "bound_by")}
+            for r in ssd_bwd_rows[1:]],
+    }
     head = next(r for r in rows if r["stage"] == "mlp_up" and r["m"] == 1
                 and r["bits"] == 2 and not r.get("grouped"))
     stage_head = next(r for r in rows if r["stage"] == "mlp_up"
@@ -3351,14 +3770,18 @@ def main() -> int:
         "name": "ssd", "route": "cuda", "redesigned": 14,
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:82",
-        "launches": hy_launches["ssd"],
+        "launches": sum(ssd_launches.values()),
+        "launches_by_phase": ssd_launches,
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "shape": {k: ssd_rows[0][k] for k in ("shape", "bh", "s", "n", "p",
                                               "chunk")},
         "ms": ssd_rows[0]["ms"], "plain_ms": ssd_rows[0]["plain_ms"],
         "bound_ms": ssd_rows[0]["bound_ms"],
         "bound_by": ssd_rows[0]["bound_by"], "library_ms": None,
-    }, {
+        # the backward's entry below, in brief
+        "backward": {k: ssd_bwd_entry[k] for k in (
+            "name", "launches", "ms", "bound_ms", "shape")},
+    }, ssd_bwd_entry, {
         "name": "flash_attention", "route": "cuda", "redesigned": 14,
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",

@@ -51,20 +51,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssd.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int QMAX = 128;      // rows i = ty + 16 r, r < 8
-constexpr int PMAX = 64;       // columns p = tx + 16 c, c < 4
-constexpr int NMAX = 128;      // state rows n = ty + 16 r, r < 8
-
-struct Strides {
-  long long b, h, s;           // elements between batches, heads, steps
-};
-
-bool shape_ok(int q, int n, int p) {
-  return q >= 1 && q <= QMAX && n >= 1 && n <= NMAX && p >= 1 && p <= PMAX;
-}
+using ssd::NMAX;
+using ssd::PMAX;
+using ssd::QMAX;
+using ssd::Strides;
+using ssd::THREADS;
+using ssd::chunk_cumsum;
+using ssd::cp_async_wait_all;
+using ssd::stage;
 
 // The scan kernel lays its tiles out for QMAX rows whatever the chunk (its
 // register tiles cover rows 0..127 and read rows past the chunk, masked).
@@ -82,163 +80,15 @@ long long scan_smem_bytes(int n, int p) {
   return (scan_xy_floats(n, p) + QMAX * p + QMAX) * sizeof(float);
 }
 
-inline int round4(int x) { return (x + 3) & ~3; }
-
-// B [q][round4(N)], dtx [q][round4(P)], la and the weights [q], and 64
-// floats of slack that the 4-wide reads past a row end may touch.
-long long state_smem_bytes(int q, int n, int p) {
-  return (static_cast<long long>(q) * (round4(n) + round4(p)) + 2 * q + 64) *
-         sizeof(float);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-// Copies a [rows][cols] tile whose rows lie `sstride` floats apart into
-// shared memory rows `dpitch` floats apart, with cp.async: 16-byte copies
-// when `vec` (cols, dpitch and sstride multiples of 4, both bases 16-byte
-// aligned), else 4-byte ones.  The row and column of each thread's next
-// element advance by constants, with no division in the loop.
-__device__ __forceinline__ void stage(float* dst, int dpitch, const float* src,
-                                      long long sstride, int rows, int cols,
-                                      bool vec) {
-  const int w = vec ? 4 : 1, cw = cols / w;
-  const int dr = THREADS / cw, dc = THREADS % cw;
-  int r = threadIdx.x / cw, c = threadIdx.x % cw;
-  while (r < rows) {
-    if (vec)
-      cp_async16(dst + r * dpitch + 4 * c, src + r * sstride + 4 * c);
-    else
-      cp_async4(dst + r * dpitch + c, src + r * sstride + c);
-    r += dr;
-    c += dc;
-    if (c >= cw) {
-      c -= cw;
-      ++r;
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// la[t] = dta[0] + ... + dta[t] for t < q (one warp; lanes 0..31)
-__device__ __forceinline__ void chunk_cumsum(const float* dta, long long ss,
-                                             int q, float* la, int lane) {
-  float v[QMAX / 32];
-  float run = 0.0f;
-#pragma unroll
-  for (int k = 0; k < QMAX / 32; ++k) {
-    const int t = lane * (QMAX / 32) + k;
-    run += t < q ? dta[t * ss] : 0.0f;
-    v[k] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += o;
-  }
-  const float excl = incl - run;
-#pragma unroll
-  for (int k = 0; k < QMAX / 32; ++k) {
-    const int t = lane * (QMAX / 32) + k;
-    if (t < q) la[t] = v[k] + excl;
-  }
-}
-
 // 1. s_c = (B * exp(la_q - la))^T dtx  ->  states[b, h, c]; la_q -> decay
-// Thread (ty, tx) holds s[n][p] for p = 4 tx + k and n = 4 ty + 64 g + k'
-// (k, k' < 4, g < 2), reading B and dtx rows four floats at a time.
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_kernel_state(const float* __restrict__ dta, Strides sa,
                  const float* __restrict__ dtx, Strides sx,
                  const float* __restrict__ Bm, Strides sb,
                  float* __restrict__ states, float* __restrict__ decay,
                  int heads, int S, int P, int N, int Q, int vec) {
-  extern __shared__ __align__(16) float smem[];
-  const int np = (N + 3) & ~3, pp = (P + 3) & ~3;
-  float* bs = smem;            // B [q][np]
-  float* ds = bs + Q * np;     // dtx [q][pp]
-  float* la = ds + Q * pp;     // [q]
-  float* ws = la + Q;          // [q] exp(la_q - la_j)
-
-  const int c = blockIdx.x, nc = gridDim.x;
-  const long long hi = blockIdx.y, bi = blockIdx.z;
-  const int s0 = c * Q, q = min(Q, S - s0);
-  dta += bi * sa.b + hi * sa.h + s0 * sa.s;
-  dtx += bi * sx.b + hi * sx.h + s0 * sx.s;
-  Bm += bi * sb.b + hi * sb.h + s0 * sb.s;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  stage(bs, np, Bm, sb.s, q, N, vec);
-  stage(ds, pp, dtx, sx.s, q, P, vec);
-  if (tid < 32) chunk_cumsum(dta, sa.s, q, la, tid);
-  cp_async_wait_all();
-  __syncthreads();
-  const float la_last = la[q - 1];
-  if (tid < q) ws[tid] = expf(la_last - la[tid]);
-  __syncthreads();
-
-  const int groups = (N + 63) / 64;
-  float st[2][4][4];
-#pragma unroll
-  for (int g = 0; g < 2; ++g)
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) st[g][a][k] = 0.0f;
-  for (int j = 0; j < q; ++j) {
-    const float w = ws[j];
-    float4 dv = *reinterpret_cast<const float4*>(ds + j * pp + 4 * tx);
-    dv.x *= w;
-    dv.y *= w;
-    dv.z *= w;
-    dv.w *= w;
-#pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      if (g < groups) {
-        const float4 bv =
-            *reinterpret_cast<const float4*>(bs + j * np + 64 * g + 4 * ty);
-        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          st[g][a][0] = fmaf(b4[a], dv.x, st[g][a][0]);
-          st[g][a][1] = fmaf(b4[a], dv.y, st[g][a][1]);
-          st[g][a][2] = fmaf(b4[a], dv.z, st[g][a][2]);
-          st[g][a][3] = fmaf(b4[a], dv.w, st[g][a][3]);
-        }
-      }
-    }
-  }
-  const long long slot = (bi * heads + hi) * nc + c;
-  float* dst = states + slot * N * P;
-#pragma unroll
-  for (int g = 0; g < 2; ++g)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int n = 64 * g + 4 * ty + a;
-      if (g >= groups || n >= N) continue;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int p = 4 * tx + k;
-        if (p < P) dst[n * P + p] = st[g][a][k];
-      }
-    }
-  if (tid == 0) decay[slot] = la_last;
+  ssd::chunk_outer<false>(dta, sa, dtx, sx, Bm, sb, states, decay, heads, S,
+                          P, N, Q, vec);
 }
 
 // 2. over the chunks in order: slot c <- h entering chunk c;
@@ -437,7 +287,7 @@ extern "C" int ssd_launch(const void* dta, long long sa_b, long long sa_h,
                           void* states, void* decay, int batch, int heads,
                           int S, int P, int N, int chunk, void* stream) {
   if (batch < 1 || heads < 1 || S < 1 || batch > 65535 || heads > 65535 ||
-      !shape_ok(chunk, N, P))
+      !ssd::shape_ok(chunk, N, P))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = (S + chunk - 1) / chunk;
   if (states == nullptr || decay == nullptr)
@@ -446,7 +296,7 @@ extern "C" int ssd_launch(const void* dta, long long sa_b, long long sa_h,
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
         ssd_kernel_state, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(state_smem_bytes(QMAX, NMAX, PMAX)));
+        static_cast<int>(ssd::state_smem_bytes(QMAX, NMAX, PMAX)));
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
           ssd_kernel_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -456,11 +306,7 @@ extern "C" int ssd_launch(const void* dta, long long sa_b, long long sa_h,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // 16-byte staging copies where dtx, B and C rows allow them
-  const auto al = [](const void* ptr, long long s0, long long s1,
-                     long long s2) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s0 % 4 == 0 &&
-           s1 % 4 == 0 && s2 % 4 == 0;
-  };
+  const auto al = ssd::aligned16;
   const int vec = N % 4 == 0 && P % 4 == 0 && al(dtx, sx_b, sx_h, sx_s) &&
                   al(Bm, sb_b, sb_h, sb_s) && al(Cm, sc_b, sc_h, sc_s);
   const Strides a{sa_b, sa_h, sa_s}, x{sx_b, sx_h, sx_s}, b{sb_b, sb_h, sb_s},
@@ -468,7 +314,8 @@ extern "C" int ssd_launch(const void* dta, long long sa_b, long long sa_h,
   const dim3 grid(nc, heads, batch);
   float* sp = static_cast<float*>(states);
   float* dp = static_cast<float*>(decay);
-  ssd_kernel_state<<<grid, THREADS, state_smem_bytes(chunk, N, P), st>>>(
+  ssd_kernel_state<<<grid, THREADS, ssd::state_smem_bytes(chunk, N, P),
+                     st>>>(
       static_cast<const float*>(dta), a, static_cast<const float*>(dtx), x,
       static_cast<const float*>(Bm), b, sp, dp, heads, S, P, N, chunk, vec);
   cudaError_t err = cudaGetLastError();

@@ -12,7 +12,8 @@ the CUDA sources live in ``src/repro_torch/csrc/`` and are built by
              weight blocks of a CSR-of-blocks schedule; int8 -> exact int32
              or float32 (``csrc/block_sparse.cu``)
 - ssd:       the Mamba-2 chunked SSD scan, the state carried on chip
-             across chunks, terminal state on request (``csrc/ssd.cu``)
+             across chunks, terminal state on request (``csrc/ssd.cu``),
+             and its gradient (``csrc/ssd_bwd.cu``)
 - flash_attention: online-softmax attention, causal or full, GQA,
              float32 or bfloat16 (``csrc/flash_attention.cu``)
 

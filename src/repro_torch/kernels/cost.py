@@ -3,10 +3,11 @@ least time an H100 could take for the same work.
 
 Two readers share these formulas: ``chip_smoke.py``, which puts each
 kernel's measured time beside its bound (``flash_bound``,
-``flash_bwd_bound``, ``ssd_bound``), and the ATen-level cost counter of the
-dry run (``repro_torch.launch.hlo_cost``), which charges a kernel launch by
-its byte formula and, through ``torch.utils.flop_counter``, by its FLOP
-formula (registered in the kernels' ``ops`` modules).
+``flash_bwd_bound``, ``ssd_bound``, ``ssd_bwd_bound``), and the ATen-level
+cost counter of the dry run (``repro_torch.launch.hlo_cost``), which
+charges a kernel launch by its byte formula and, through
+``torch.utils.flop_counter``, by its FLOP formula (registered in the
+kernels' ``ops`` modules).
 
 The bounds count the work the function needs (the five products of the
 attention backward, a causal score tile's lower half, each input read once
@@ -146,4 +147,49 @@ def ssd_flops(nb, nh, s, n, p, chunk) -> float:
     """What the scan kernel issues: the score tile per head (``csrc/ssd.cu``
     shares it across heads only in its reads)."""
     scores, per_head = _ssd_work(s, n, p, chunk)
+    return 2.0 * nb * nh * (scores + per_head)
+
+
+def _ssd_bwd_work(s: int, n: int, p: int, chunk: int):
+    """(score-tile multiply-adds, per-head multiply-adds) of the backward
+    over the chunks: the causal half of C B^T; per head the causal halves of
+    dy x^T and of the three products with the decay mask (dx, dB and dC),
+    and four N x P products a chunk (u_c, the state terms of dx and dB, the
+    readout term of dC)."""
+    scores = per_head = 0
+    for s0 in range(0, s, chunk):
+        q = min(chunk, s - s0)
+        tri = q * (q + 1) // 2
+        scores += tri * n
+        per_head += tri * (2 * p + 2 * n) + 4 * q * n * p
+    return scores, per_head
+
+
+def ssd_bwd_bytes(nb, nh, s, n, p, shared_bc, dh_final=False) -> float:
+    """dta, dtx, B, C and dy read once, ddta, ddtx, dB and dC written once
+    (B, C, dB and dC once per batch where the heads share them), and the
+    terminal state's gradient read where it is given."""
+    bc_copies = nb if shared_bc else nb * nh
+    return 4.0 * (2 * nb * nh * s + 3 * nb * nh * s * p
+                  + 4 * bc_copies * s * n
+                  + (nb * nh * n * p if dh_final else 0))
+
+
+def ssd_bwd_bound(nb, nh, s, n, p, chunk, shared_bc, dh_final=False):
+    """(bound ms, "bytes" | "operations") of the SSD backward:
+    :func:`ssd_bwd_bytes` over HBM against the chunked gradient's float32
+    multiply-adds at the float32 peak, C B^T once per batch where the heads
+    share B and C."""
+    bc_copies = nb if shared_bc else nb * nh
+    scores, per_head = _ssd_bwd_work(s, n, p, chunk)
+    ops = 2.0 * (bc_copies * scores + nb * nh * per_head)
+    return _bound(ssd_bwd_bytes(nb, nh, s, n, p, shared_bc, dh_final), ops,
+                  F32_OPS_PER_S)
+
+
+def ssd_bwd_flops(nb, nh, s, n, p, chunk) -> float:
+    """What the backward kernels issue (``csrc/ssd_bwd.cu``): C B^T per
+    head, as the forward; the reverse pass and the heads' sum of dB and dC
+    (under 1 % of it) are not counted."""
+    scores, per_head = _ssd_bwd_work(s, n, p, chunk)
     return 2.0 * nb * nh * (scores + per_head)

@@ -13,9 +13,17 @@ Each call is a ``torch.library`` custom op (``repro_torch::ssd_scan``,
 formula (``BYTES``), so that a traced run on fake tensors (the dry run)
 passes through it; the scratch the kernel needs is allocated before the op
 and handed to it, so that a memory tracker sees it.
-The kernel has no backward yet: a CUDA call whose float inputs need a
-gradient raises (``refuse_grad``), so Mamba-2 and Zamba2 train only on
-the CPU until it has one.
+
+Under autograd (grad enabled and an input requiring a gradient) the
+``"cuda"`` and ``"reference"`` routes go through :class:`SSDScan`: its
+forward is the same launch (or plain version), and it saves the inputs and
+the kernel's scratch, which holds each chunk's entering state after the
+call; its backward is the backward kernel (``csrc/ssd_bwd.cu``, custom op
+``repro_torch::ssd_scan_bwd``, counted in ``LAUNCHES["backward_float32"]``)
+on the card and ``ssd_chunked_bwd_ref`` on the CPU.  B and C may also come
+as ``[B, S, N]`` shared by the heads (Mamba-2's single group): the
+backward kernel then sums their gradients over the heads itself, in a
+fixed order.
 """
 from __future__ import annotations
 
@@ -28,11 +36,14 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.device import card_tracing, on_card
 from repro_torch.kernels import cost
-from repro_torch.kernels.bitlinear.ops import refuse_grad
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
+from repro_torch.kernels.ssd.ref import (
+    ssd_chunked_bwd_ref, ssd_chunked_ref, ssd_scan_ref,
+)
 
 BACKENDS = ("auto", "reference", "naive", "cuda")
-LAUNCHES: Dict[str, int] = {"float32": 0}
+# forward launches (three CUDA kernels each) and backward calls (four, or
+# three where the heads do not share B and C)
+LAUNCHES: Dict[str, int] = {"float32": 0, "backward_float32": 0}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
 
@@ -41,16 +52,17 @@ ROUTES: Dict[str, int] = {"kernel": 0, "grouped": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["float32"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def route(dtx: torch.Tensor) -> str:
     """Which scan the model runs on ``dtx`` (a tensor or a DTensor):
-    ``"grouped"`` (``ref.ssd_grouped_scan``, differentiable) where a
-    traced run of the card's program (``device.card_trace``) needs the
-    gradient, which the kernel does not give; else ``"kernel"``, the
-    :func:`ssd` wrapper (the kernel on the card, which refuses a gradient;
-    its plain version on the CPU).  Counted in ``ROUTES``."""
+    ``"grouped"`` (``ref.ssd_grouped_scan``, differentiated by autograd)
+    where a traced run of the card's program (``device.card_trace``, the
+    dry run) needs the gradient; else ``"kernel"``, the :func:`ssd`
+    wrapper (the kernels on the card, forward and backward; their plain
+    versions on the CPU).  Counted in ``ROUTES``."""
     grouped = (card_tracing() and torch.is_grad_enabled()
                and dtx.requires_grad)
     which = "grouped" if grouped else "kernel"
@@ -188,9 +200,143 @@ def _ssd_bytes(dta, dtx, b, c, scratch, chunk):
     return cost.ssd_bytes(nb, nh, s, b.shape[-1], p, shared)
 
 
+def bwd_work_sizes(nb: int, nh: int, s: int, n: int, p: int, chunk: int,
+                   shared: bool) -> tuple:
+    """Float32 elements of the backward's scratch, which the wrapper
+    allocates as one: the state gradients ``[B, H, nc, N, P]`` and, where
+    the heads share B and C, each head's dB and dC ``[B, H, S, N]`` before
+    their sum over the heads."""
+    nc = -(-s // chunk)
+    return nb * nh * nc * n * p, 2 * nb * nh * s * n if shared else 0
+
+
+def _bwd_work(dtx, b, chunk: int) -> torch.Tensor:
+    nb, nh, s, p = dtx.shape
+    return torch.empty(sum(bwd_work_sizes(nb, nh, s, b.shape[-1], p, chunk,
+                                          b.ndim == 3)),
+                       dtype=torch.float32, device=dtx.device)
+
+
+def _bwd_outputs(dtx, b):
+    """ddta and ddtx in [batch, S, heads, ...] memory order (as the model
+    holds dta and dtx), db and dc in b's shape."""
+    nb, nh, s, p = dtx.shape
+    f32, dev = torch.float32, dtx.device
+    ddta = torch.empty((nb, s, nh), dtype=f32, device=dev).transpose(1, 2)
+    ddtx = torch.empty((nb, s, nh, p), dtype=f32, device=dev).transpose(1, 2)
+    db, dc = (torch.empty(b.shape, dtype=f32, device=dev) for _ in range(2))
+    return ddta, ddtx, db, dc
+
+
+def _per_head(b, c, nh: int):
+    """B and C as [batch, heads, S, N]: a ``[batch, S, N]`` pair shared by
+    the heads becomes a head-stride-0 view, uncopied."""
+    if b.ndim == 4:
+        return b, c
+    nb, s, n = b.shape
+    return tuple(t[:, None].expand(nb, nh, s, n) for t in (b, c))
+
+
+def _launch_bwd(dta, dtx, b, c, dy, scratch, h_final, dh_final, chunk: int,
+                work: Optional[torch.Tensor] = None):
+    """The backward kernels over 4-D [batch, heads, S, ...] views, with b
+    and c ``[batch, heads, S, N]`` or ``[batch, S, N]`` shared by the
+    heads; ``scratch`` is the forward launch's after its call, and
+    ``h_final`` (its terminal state) is given exactly when ``dh_final`` is.
+    Returns (ddta, ddtx, db, dc), db and dc in b's shape; ``work`` holds
+    :func:`bwd_work_sizes` float32 elements (allocated here if None)."""
+    from repro_torch.kernels.build import library
+
+    tensors = (("dta", dta), ("dtx", dtx), ("b", b), ("c", c), ("dy", dy))
+    if any(t.dtype != torch.float32 for _, t in tensors):
+        raise TypeError("the SSD backward takes float32 dta, dtx, b, c and "
+                        "dy; got " + ", ".join(str(t.dtype) for _, t in
+                                               tensors))
+    if any(t.device != dtx.device for _, t in tensors):
+        raise ValueError("dta, dtx, b, c and dy must lie on one CUDA device")
+    for label, t in tensors[1:]:
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{label} needs unit stride along its last axis")
+    if (h_final is None) != (dh_final is None):
+        raise ValueError("h_final and dh_final are given together")
+    nb, nh, s, p = dtx.shape
+    n = b.shape[-1]
+    if not 1 <= chunk <= MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"the SSD kernel takes chunk <= {MAX_CHUNK}, "
+                         f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got "
+                         f"chunk={chunk}, P={p}, N={n}")
+    shared = b.ndim == 3
+    ddta, ddtx, db, dc = _bwd_outputs(dtx, b)
+    if s == 0:
+        return ddta.zero_(), ddtx.zero_(), db.zero_(), dc.zero_()
+    n_grads, n_part = bwd_work_sizes(nb, nh, s, n, p, chunk, shared)
+    if work is None:
+        work = _bwd_work(dtx, b, chunk)
+    if shared:
+        part_b, part_c = work[n_grads:n_grads + n_part].view(
+            2, nb, nh, s, n).unbind(0)
+        heads_b, heads_c, sums = part_b, part_c, (db, dc)
+    else:
+        heads_b, heads_c, sums = db, dc, (None, None)
+    b4, c4 = _per_head(b, c, nh)
+    states = scratch.data_ptr()
+    decay = states + 4 * scratch_sizes(nb, nh, s, n, p, chunk)[0]
+    fn = library("ssd_bwd").ssd_bwd_launch
+    if fn.argtypes is None:
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [vp, ll, ll, ll] * 9 + [vp] * 7 + [ci] * 6 + [vp]
+        fn.restype = ci
+    args = []
+    for t in (dta, dtx, b4, c4, dy, ddta, ddtx, heads_b, heads_c):
+        args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    rc = fn(*args, states, decay, ptr(h_final), ptr(dh_final),
+            work.data_ptr(), ptr(sums[0]), ptr(sums[1]), nb, nh, s, p, n,
+            chunk, torch.cuda.current_stream(dtx.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd backward kernel launch failed: CUDA error "
+                           f"{rc} (B={nb} H={nh} S={s} P={p} N={n} "
+                           f"chunk={chunk} shared={shared})")
+    LAUNCHES["backward_float32"] += 1
+    return ddta, ddtx, db, dc
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=("work",),
+                         device_types="cuda")
+def _ssd_bwd_op(dta: torch.Tensor, dtx: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, dy: torch.Tensor, scratch: torch.Tensor,
+                h_final: Optional[torch.Tensor],
+                dh_final: Optional[torch.Tensor], work: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    return _launch_bwd(dta, dtx, b, c, dy, scratch, h_final, dh_final,
+                       chunk, work)
+
+
+@_ssd_bwd_op.register_fake
+def _(dta, dtx, b, c, dy, scratch, h_final, dh_final, work, chunk):
+    return _bwd_outputs(dtx, b)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd, get_raw=True)
+def _ssd_bwd_flops(dta, dtx, b, c, dy, scratch, h_final, dh_final, work,
+                   chunk, *a, **kw):
+    nb, nh, s, p = dtx.shape
+    return int(cost.ssd_bwd_flops(nb, nh, s, b.shape[-1], p, chunk))
+
+
+def _ssd_bwd_bytes(dta, dtx, b, c, dy, scratch, h_final, dh_final, work,
+                   chunk):
+    nb, nh, s, p = dtx.shape
+    shared = b.ndim == 3 or (b.stride(1) == 0 and c.stride(1) == 0)
+    return cost.ssd_bwd_bytes(nb, nh, s, b.shape[-1], p, shared,
+                              dh_final is not None)
+
+
 # op overload packet -> bytes the launch moves, from its arguments
 BYTES = {torch.ops.repro_torch.ssd_scan: _ssd_bytes,
-         torch.ops.repro_torch.ssd_scan_state: _ssd_bytes}
+         torch.ops.repro_torch.ssd_scan_state: _ssd_bytes,
+         torch.ops.repro_torch.ssd_scan_bwd: _ssd_bwd_bytes}
 
 
 def _plain(dta, dtx, b, c, chunk: int, naive: bool, return_state: bool):
@@ -211,6 +357,97 @@ def _plain(dta, dtx, b, c, chunk: int, naive: bool, return_state: bool):
     return (out[0][:, :s], out[1]) if return_state else out[:, :s]
 
 
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, *t.shape[2:])
+
+
+def _plain4(dta, dtx, b, c, chunk: int, naive: bool, return_state: bool):
+    """:func:`_plain` over [batch, heads, S, ...] tensors, b and c per head
+    or shared; returns (y [B, H, S, P], h [B, H, N, P] or None)."""
+    nb, nh, s, p = dtx.shape
+    b, c = _per_head(b, c, nh)
+    out = _plain(_flat(dta), _flat(dtx), _flat(b), _flat(c), chunk, naive,
+                 return_state)
+    y, h = out if return_state else (out, None)
+    return (y.reshape(nb, nh, s, p),
+            h.reshape(nb, nh, *h.shape[1:]) if h is not None else None)
+
+
+def _forward(dta, dtx, b, c, chunk: int, backend: str, return_state: bool):
+    """(y, terminal state or None, the kernel's scratch or None) over
+    [batch, heads, S, ...] tensors, b and c per head or shared: the
+    kernel's custom op on the ``"cuda"`` route (its scratch then holds the
+    state entering each chunk), else the plain version."""
+    if backend != "cuda":
+        return (*_plain4(dta, dtx, b, c, chunk, backend == "naive",
+                         return_state), None)
+    b4, c4 = _per_head(b, c, dtx.shape[1])
+    scratch = _scratch(dtx, b.shape[-1], chunk)
+    if return_state:
+        y, h = torch.ops.repro_torch.ssd_scan_state(dta, dtx, b4, c4,
+                                                     scratch, chunk)
+    else:
+        y, h = torch.ops.repro_torch.ssd_scan(dta, dtx, b4, c4, scratch,
+                                              chunk), None
+    return y, h, scratch
+
+
+def _plain_bwd(dta, dtx, b, c, dy, chunk: int, dh_final):
+    """``ssd_chunked_bwd_ref`` over [batch, heads, S, ...] tensors; where
+    the heads share b and c (``[batch, S, N]``) their gradients are summed
+    over the heads."""
+    nb, nh, s, p = dtx.shape
+    b4, c4 = _per_head(b, c, nh)
+    ddta, ddtx, db, dc = ssd_chunked_bwd_ref(
+        _flat(dta), _flat(dtx), _flat(b4), _flat(c4), _flat(dy),
+        chunk=chunk,
+        dh_final=_flat(dh_final) if dh_final is not None else None)
+    db, dc = (t.reshape(nb, nh, s, -1) for t in (db, dc))
+    if b.ndim == 3:
+        db, dc = db.sum(1), dc.sum(1)
+    return ddta.reshape(nb, nh, s), ddtx.reshape(nb, nh, s, p), db, dc
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its backward.  The forward is the kernel's custom
+    op (``backend="cuda"``) or the chunked plain version
+    (``"reference"``) on [batch, heads, S, ...] tensors, b and c per head
+    or ``[batch, S, N]`` shared by the heads; it saves the inputs and, on
+    the card, the kernel's scratch, whose state slots then hold the state
+    entering each chunk (the backward kernel reads them rather than
+    running the forward's kernels again), and the terminal state when it
+    is returned.  The backward is ``repro_torch::ssd_scan_bwd`` on the
+    card and ``ssd_chunked_bwd_ref`` on the CPU; a terminal state's
+    gradient enters as ``dh_final``."""
+
+    @staticmethod
+    def forward(ctx, dta, dtx, b, c, chunk: int, backend: str,
+                return_state: bool):
+        ctx.set_materialize_grads(False)
+        y, h, scratch = _forward(dta, dtx, b, c, chunk, backend,
+                                 return_state)
+        ctx.save_for_backward(dta, dtx, b, c, scratch, h)
+        ctx.chunk, ctx.backend = chunk, backend
+        return (y, h) if return_state else y
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        dta, dtx, b, c, scratch, h = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(dtx)
+        if ctx.backend != "cuda":
+            grads = _plain_bwd(dta, dtx, b, c, dy, ctx.chunk, dh)
+            return (*grads, None, None, None)
+        if dy.stride(-1) != 1:          # autograd's tensor, not the model's
+            dy = dy.contiguous()
+        if dh is not None:
+            dh = dh.contiguous()
+        grads = torch.ops.repro_torch.ssd_scan_bwd(
+            dta, dtx, b, c, dy, scratch, h if dh is not None else None, dh,
+            _bwd_work(dtx, b, ctx.chunk), ctx.chunk)
+        return (*grads, None, None, None)
+
+
 def ssd(
     dta: torch.Tensor,
     dtx: torch.Tensor,
@@ -225,43 +462,37 @@ def ssd(
 
     Shapes as in the JAX package: ``dta [BH, S]``, ``dtx [BH, S, P]``,
     ``b``/``c [BH, S, N]`` -> ``y [BH, S, P]``; or with the leading axis
-    split, ``[B, H, S, ...]`` -> ``y [B, H, S, P]``, so that a head-shared
+    split, ``[B, H, S, ...]`` -> ``y [B, H, S, P]``, where a head-shared
     B/C can be an ``expand`` view with head stride 0 (the kernel reads it
-    uncopied).  ``S`` need not be a multiple of ``chunk``.
+    uncopied) or ``[B, S, N]`` (its gradient then comes summed over the
+    heads).  ``S`` need not be a multiple of ``chunk``.
     ``return_state=True`` also returns the terminal state ``[BH, N, P]``
     (``[B, H, N, P]``): the prefill-to-decode handoff, which the kernel
-    writes from the state it already holds.
+    writes from the state it already holds.  Differentiable: under
+    autograd the kernel and plain routes go through :class:`SSDScan`.
     """
     split = dtx.ndim == 4
     lead = tuple(dtx.shape[:2]) if split else (dtx.shape[0],)
     s, p = dtx.shape[-2:]
     n = b.shape[-1]
-    want = {"dta": lead + (s,), "b": lead + (s, n), "c": lead + (s, n)}
+    shared = split and b.ndim == 3
+    bc_lead = lead[:1] if shared else lead
+    want = {"dta": lead + (s,), "b": bc_lead + (s, n),
+            "c": bc_lead + (s, n)}
     for label, t in (("dta", dta), ("b", b), ("c", c)):
         if tuple(t.shape) != want[label]:
             raise ValueError(f"{label} {tuple(t.shape)} != {want[label]} "
                              f"(dtx {tuple(dtx.shape)})")
-    if _resolve(backend, dtx) == "cuda":
-        refuse_grad("ssd", "ROADMAP.md Queue 1, item 4: the SSD backward",
-                    dta, dtx, b, c)
-        if not split:
-            dta, dtx, b, c = (t.unsqueeze(0) for t in (dta, dtx, b, c))
-        scratch = _scratch(dtx, n, chunk)
-        if return_state:
-            y, h = torch.ops.repro_torch.ssd_scan_state(dta, dtx, b, c,
-                                                         scratch, chunk)
-        else:
-            y, h = torch.ops.repro_torch.ssd_scan(dta, dtx, b, c, scratch,
-                                                  chunk), None
-        if not split:
-            y, h = y[0], (h[0] if h is not None else None)
-        return (y, h) if return_state else y
-    bh = lead[0] * lead[1] if split else lead[0]
-    out = _plain(dta.reshape(bh, s), dtx.reshape(bh, s, p),
-                 b.reshape(bh, s, n), c.reshape(bh, s, n), chunk,
-                 backend == "naive", return_state)
+    backend = _resolve(backend, dtx)
     if not split:
-        return out
-    if return_state:
-        return out[0].reshape(*lead, s, p), out[1].reshape(*lead, n, p)
-    return out.reshape(*lead, s, p)
+        dta, dtx, b, c = (t.unsqueeze(0) for t in (dta, dtx, b, c))
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dta, dtx, b, c))
+    if grad and backend != "naive":
+        out = SSDScan.apply(dta, dtx, b, c, chunk, backend, return_state)
+        y, h = out if return_state else (out, None)
+    else:
+        y, h, _ = _forward(dta, dtx, b, c, chunk, backend, return_state)
+    if not split:
+        y, h = y[0], (h[0] if h is not None else None)
+    return (y, h) if return_state else y

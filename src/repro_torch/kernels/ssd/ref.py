@@ -8,13 +8,19 @@
 ``ssd_grouped_scan``  — the JAX model's default scan: chunk after chunk,
                         one ``[B, H, q, q]`` tile live, C Bᵀ once per batch
                         for the head-shared B and C.
+``ssd_chunked_bwd_ref`` — the chunked scan's gradient in closed form, in
+                        the backward kernel's own three steps
+                        (``csrc/ssd_bwd.cu``).
 
 Inputs are pre-scaled (``dta = dt * A`` [negative], ``dtx = dt * x``) and
 computed in float32; see ``csrc/ssd.cu`` for the recurrence.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 
 
 def ssd_scan_ref(
@@ -139,3 +145,100 @@ def ssd_grouped_scan(
         ys.append(y.to(dtx.dtype))
     y = torch.stack(ys, dim=2).reshape(bsz, h, s, p)
     return (y, hst) if return_state else y
+
+
+def ssd_chunked_bwd_ref(
+    dta: torch.Tensor,     # [BH, S]
+    dtx: torch.Tensor,     # [BH, S, P]
+    b: torch.Tensor,       # [BH, S, N]
+    c: torch.Tensor,       # [BH, S, N]
+    dy: torch.Tensor,      # [BH, S, P]
+    *,
+    chunk: int = 128,
+    dh_final: Optional[torch.Tensor] = None,   # [BH, N, P]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`ssd_chunked_ref` (y and, through
+    ``dh_final``, the terminal state) with respect to dta, dtx, b and c,
+    in closed form: no autograd.  ``S`` need not be a multiple of
+    ``chunk``: the last chunk is shorter, as in the kernel (padding with
+    dta = 0 and zero inputs and gradients changes nothing).
+
+    Per chunk of q steps, with la = cumsum(dta) inside it, A = la_q, H_in
+    the state entering it, s its own state and G the gradient of the state
+    leaving it (``dh_final`` for the last chunk):
+
+    1. u = (C * exp(la))^T dy, and the reverse pass over the chunks
+       G_in = exp(A) G + u;
+    2. dx_j = sum_{i>=j} (C_i.B_j) exp(la_i - la_j) dy_i
+              + exp(A - la_j) G^T B_j,
+       dC_i = sum_{j<=i} (dy_i.x_j) exp(la_i - la_j) B_j + exp(la_i) H_in dy_i,
+       dB_j = sum_{i>=j} (dy_i.x_j) exp(la_i - la_j) C_i + exp(A - la_j) G x_j;
+    3. d la_k = C_k.dC_k - x_k.dx_k (the intra-chunk row and column sums,
+       the state readout and the chunk state's own decays), plus
+       <G, exp(A) H_in + s> at the chunk's last step (A's two terms), and
+       ddta is its reverse cumulative sum inside the chunk.
+
+    Every exponent is <= 0 for negative dta, as in the forward."""
+    bh, s, p = dtx.shape
+    n = b.shape[-1]
+    f32 = torch.float32
+    pad = (-s) % chunk
+    if pad:
+        dta = F.pad(dta, (0, pad))
+        dtx, b, c, dy = (F.pad(t, (0, 0, 0, pad)) for t in (dtx, b, c, dy))
+    nc = (s + pad) // chunk
+    dta_c = dta.reshape(bh, nc, chunk).to(f32)
+    x = dtx.reshape(bh, nc, chunk, p).to(f32)
+    b_c = b.reshape(bh, nc, chunk, n).to(f32)
+    c_c = c.reshape(bh, nc, chunk, n).to(f32)
+    g_y = dy.reshape(bh, nc, chunk, p).to(f32)
+
+    la = torch.cumsum(dta_c, dim=-1)                      # [bh, nc, q]
+    a_tot = la[..., -1]                                   # [bh, nc]
+    idx = torch.arange(chunk, device=dtx.device)
+    lower = idx[:, None] >= idx[None, :]
+    decay = torch.where(lower, torch.exp(torch.where(
+        lower, la[..., :, None] - la[..., None, :], 0.0)), 0.0)
+    w_in = torch.exp(la)                                  # exp(la_i)
+    w_out = torch.exp(a_tot[..., None] - la)              # exp(A - la_j)
+
+    # the forward's chunk states and the states entering each chunk
+    own = torch.einsum("bcjn,bcjp->bcnp", b_c * w_out[..., None], x)
+    h = torch.zeros((bh, n, p), dtype=f32, device=dtx.device)
+    h_in = []
+    for k in range(nc):
+        h_in.append(h)
+        h = torch.exp(a_tot[:, k])[:, None, None] * h + own[:, k]
+    h_in = torch.stack(h_in, dim=1)                       # [bh, nc, n, p]
+    h_out = torch.cat([h_in[:, 1:], h[:, None]], dim=1)
+
+    # 1. the state gradients, last chunk first
+    u = torch.einsum("bcin,bcip->bcnp", c_c * w_in[..., None], g_y)
+    g = (torch.zeros((bh, n, p), dtype=f32, device=dtx.device)
+         if dh_final is None else dh_final.to(f32))
+    g_out = [None] * nc
+    for k in reversed(range(nc)):
+        g_out[k] = g
+        g = torch.exp(a_tot[:, k])[:, None, None] * g + u[:, k]
+    g_out = torch.stack(g_out, dim=1)                     # [bh, nc, n, p]
+
+    # 2. the intra-chunk products and the state terms
+    scores = torch.einsum("bcin,bcjn->bcij", c_c, b_c) * decay
+    dyx = torch.einsum("bcip,bcjp->bcij", g_y, x) * decay
+    ddtx = (torch.einsum("bcij,bcip->bcjp", scores, g_y)
+            + w_out[..., None] * torch.einsum("bcjn,bcnp->bcjp", b_c, g_out))
+    dc = (torch.einsum("bcij,bcjn->bcin", dyx, b_c)
+          + w_in[..., None] * torch.einsum("bcip,bcnp->bcin", g_y, h_in))
+    db = (torch.einsum("bcij,bcin->bcjn", dyx, c_c)
+          + w_out[..., None] * torch.einsum("bcjp,bcnp->bcjn", x, g_out))
+
+    # 3. the log-decay gradient and its reverse cumulative sum
+    dla = (c_c * dc).sum(-1) - (x * ddtx).sum(-1)
+    dla[..., -1] += (g_out * h_out).sum((-2, -1))
+    ddta = torch.flip(torch.cumsum(torch.flip(dla, (-1,)), -1), (-1,))
+
+    def back(t, *tail):
+        return t.reshape(bh, s + pad, *tail)[:, :s]
+
+    return (back(ddta), back(ddtx, p).to(dtx.dtype), back(db, n),
+            back(dc, n))

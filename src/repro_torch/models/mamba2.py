@@ -11,14 +11,16 @@ Python loop; the sharding constraints are kept (the identity on plain
 tensors, a redistribution of DTensors under the active rules).
 The full-sequence scan is one call of :func:`repro_torch.kernels.ssd.ops.ssd`
 on per-head inputs (the JAX package's Pallas branch): the SSD kernel for
-CUDA tensors, its chunked plain version for CPU tensors.  The group-shared
-B and C go in as an ``expand`` view over heads, not a copy.
+CUDA tensors, its chunked plain version for CPU tensors, each with its
+backward under autograd (the backward kernel on the card).  The
+group-shared B and C go in as ``[B, S, N]``, read by the kernels with head
+stride 0, uncopied; their gradients come back summed over the heads.
 ``cfg.kernel_backend``, a TPU choice between that branch and the grouped
 jnp scan, is not read: both compute the same function.  The grouped scan
 (:func:`repro_torch.kernels.ssd.ref.ssd_grouped_scan`) is what a traced
-train step of the card's program takes (``ssd_ops.route``): the kernel
-has no backward, and the card's own train path refuses.  Decode is the
-exact one-step recurrence in plain tensor operations.  Prefill and decode
+train step of the card's program (the dry run) takes
+(``ssd_ops.route``).  Decode is the exact one-step recurrence in plain
+tensor operations.  Prefill and decode
 write the caches in place (the returned cache holds the same tensors).
 """
 from __future__ import annotations
@@ -194,12 +196,13 @@ def ssm_block(
 def _scan(dta_h, dtx_h, bmat, cmat, chunk: int, return_state: bool):
     """The SSD scan over the whole sequence: dta ``[B,H,S]``, dtx
     ``[B,H,S,P]``, the group-shared B and C ``[B,S,N]`` -> (y ``[B,H,S,P]``,
-    terminal state or None).  The kernel's route takes B and C as an
-    ``expand`` view over heads (head stride 0, no copy); a traced train
-    step takes the grouped scan (:func:`ssd_ops.route`).  On DTensors the
-    scan runs on each rank's batch rows and heads (``local_map``), which
-    needs no collective; B and C, shared by the heads, are whole along the
-    heads' mesh axes, and their gradients add up over those axes."""
+    terminal state or None).  The kernel's route hands B and C over as
+    they are (the kernels read them with head stride 0, no copy); a traced
+    train step takes the grouped scan (:func:`ssd_ops.route`).  On
+    DTensors the scan runs on each rank's batch rows and heads
+    (``local_map``), which needs no collective; B and C, shared by the
+    heads, are whole along the heads' mesh axes, and their gradients add up
+    over those axes."""
     grouped = ssd_ops.route(dtx_h) == "grouped"
 
     def heads(dta_h, dtx_h, bmat, cmat):
@@ -216,9 +219,7 @@ def _scan(dta_h, dtx_h, bmat, cmat, chunk: int, return_state: bool):
                                    return_state=return_state)
             y, h = out if return_state else (out, None)
             return (y[:, :, :s] if pad else y), h
-        n = bmat.shape[-1]
-        out = ssd_ops.ssd(dta_h, dtx_h, bmat[:, None].expand(b, nh, s, n),
-                          cmat[:, None].expand(b, nh, s, n), chunk=chunk,
+        out = ssd_ops.ssd(dta_h, dtx_h, bmat, cmat, chunk=chunk,
                           return_state=return_state)
         return out if return_state else (out, None)
 

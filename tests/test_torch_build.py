@@ -83,3 +83,42 @@ def test_profiler_names_follow_the_backward_kernels():
     f32 = set(names) - set(bf16) - set(shared)
     assert len(shared) + len(bf16) == smoke.FLASH_BWD_KERNELS_PER_CALL
     assert len(shared) + len(f32) == smoke.FLASH_BWD_KERNELS_PER_CALL
+
+
+def _chip_smoke():
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _global_names(source: str):
+    import re
+
+    src = (Path(build.CSRC) / source).read_text()
+    return re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        src)
+
+
+def test_chip_smoke_builds_every_source():
+    """phase build compiles every csrc/*.cu, the SSD backward's too."""
+    smoke = _chip_smoke()
+    assert set(smoke.SOURCES) == {p.stem for p in Path(build.CSRC).glob(
+        "*.cu")}
+    assert "ssd_bwd" in smoke.SOURCES
+
+
+def test_profiler_names_follow_the_ssd_kernels():
+    """chip_smoke.py reads the SSD forward's and backward's device time by
+    exact kernel name: the names it matches are the ``__global__``
+    functions of ssd.cu and ssd_bwd.cu (a call launches each of them once;
+    the backward's head sum only where the heads share B and C)."""
+    smoke = _chip_smoke()
+    fwd, bwd = _global_names("ssd.cu"), _global_names("ssd_bwd.cu")
+    assert sorted(fwd) == sorted(smoke.SSD_KERNELS)
+    assert sorted(bwd) == sorted(smoke.SSD_BWD_KERNELS)
+    assert not set(fwd) & set(bwd)

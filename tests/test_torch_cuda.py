@@ -408,6 +408,114 @@ def test_ssd_kernel_rejections(card):
 
 
 # --------------------------------------------------------------------------- #
+# SSD backward: against the plain closed form on the card, rtol 1e-4 / atol
+# 1e-5 * max|g| (float32 summed in another order), bit-equal across calls
+# --------------------------------------------------------------------------- #
+
+def _ssd_bwd_plain(dta, dtx, b, c, dy, chunk, dh):
+    """ssd_chunked_bwd_ref over [B, H, S, ...], dB and dC summed over the
+    heads where b and c are [B, S, N]."""
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    nb, nh, s, p = dtx.shape
+    b4, c4 = (t[:, None].expand(nb, nh, *t.shape[1:]) if t.ndim == 3 else t
+              for t in (b, c))
+    flat = lambda t: t.reshape(nb * nh, *t.shape[2:])      # noqa: E731
+    g = ssd_chunked_bwd_ref(flat(dta), flat(dtx), flat(b4), flat(c4),
+                            flat(dy), chunk=chunk,
+                            dh_final=flat(dh) if dh is not None else None)
+    db, dc = (t.reshape(nb, nh, s, -1) for t in g[2:])
+    if b.ndim == 3:
+        db, dc = db.sum(1), dc.sum(1)
+    return g[0].reshape(nb, nh, s), g[1].reshape(nb, nh, s, p), db, dc
+
+
+def _close_grads(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,nh,s,n,p,chunk,with_dh", [
+    (1, 3, 128, 16, 32, 32, False), (2, 5, 100, 40, 48, 32, True),
+    (1, 112, 23, 64, 64, 23, True), (1, 4, 300, 128, 64, 128, False),
+    (2, 2, 7, 8, 8, 128, True), (1, 2, 64, 16, 16, 1, False),
+    (1, 3, 4096, 64, 64, 128, True), (2, 2, 1001, 128, 64, 96, False)])
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssd_bwd_kernel_matches_plain_version(card, nb, nh, s, n, p, chunk,
+                                              with_dh, shared):
+    """The backward kernels from the forward kernel's scratch against the
+    plain backward; B and C per head, or [B, S, N] shared by the heads (the
+    kernel sums their gradients over the heads); two calls bit-equal."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    chunk = min(chunk, s)
+    dta, dtx, b4, c4 = _ssd_operands(nb, nh, s, n, p, s + n, card, shared)
+    b, c = (b4[:, 0], c4[:, 0]) if shared else (b4, c4)
+    rng = np.random.default_rng(s + p)
+    dy = torch.from_numpy(rng.standard_normal((nb, nh, s, p)).astype(
+        np.float32)).to(card)
+    dh = (torch.from_numpy(rng.standard_normal((nb, nh, n, p)).astype(
+        np.float32)).to(card) if with_dh else None)
+    scratch = ssd_ops._scratch(dtx, n, chunk)
+    _, h = ssd_ops._launch(dta, dtx, b4, c4, chunk, with_dh, scratch)
+    before = ssd_ops.LAUNCHES["backward_float32"]
+    got = ssd_ops._launch_bwd(dta, dtx, b, c, dy, scratch, h, dh, chunk)
+    again = ssd_ops._launch_bwd(dta, dtx, b, c, dy, scratch, h, dh, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["backward_float32"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _close_grads(got, _ssd_bwd_plain(dta, dtx, b, c, dy, chunk, dh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("return_state", [False, True])
+def test_ssd_under_autograd_runs_the_backward_kernel(card, return_state):
+    """ssd() on CUDA inputs that need a gradient goes through SSDScan: one
+    forward and one backward launch, gradients equal to autograd through
+    the chunked plain version on the card, for B and C shared by the heads
+    ([B, S, N]) as the model passes them."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    nb, nh, s, n, p, chunk = 2, 6, 300, 32, 64, 128
+    dta, dtx, b4, c4 = _ssd_operands(nb, nh, s, n, p, 5, card)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (dta, dtx, b4[:, 0], c4[:, 0])]
+    rng = np.random.default_rng(6)
+    dy = torch.from_numpy(rng.standard_normal((nb, nh, s, p)).astype(
+        np.float32)).to(card)
+    dh = torch.from_numpy(rng.standard_normal((nb, nh, n, p)).astype(
+        np.float32)).to(card)
+    before = dict(ssd_ops.LAUNCHES)
+    out = ssd_ops.ssd(*leaves, chunk=chunk, return_state=return_state)
+    outs, cots = ((out[0], out[1]), (dy, dh)) if return_state else (
+        (out,), (dy,))
+    got = torch.autograd.grad(outs, leaves, cots)
+    torch.cuda.synchronize()
+    assert {k: ssd_ops.LAUNCHES[k] - before[k] for k in before} == {
+        "float32": 1, "backward_float32": 1}
+
+    def plain(dta, dtx, b, c):
+        pad = (-s) % chunk
+        flat = lambda t: torch.nn.functional.pad(             # noqa: E731
+            t.reshape(nb * nh, s, -1), (0, 0, 0, pad))
+        bb, cc = (t[:, None].expand(nb, nh, s, n) for t in (b, c))
+        y, h = ssd_chunked_ref(
+            torch.nn.functional.pad(dta.reshape(nb * nh, s), (0, pad)),
+            flat(dtx), flat(bb), flat(cc), chunk=chunk, return_state=True)
+        return y[:, :s].reshape(nb, nh, s, p), h.reshape(nb, nh, n, p)
+
+    ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    y_ref, h_ref = plain(*ref_leaves)
+    want = torch.autograd.grad((y_ref, h_ref) if return_state else (y_ref,),
+                               ref_leaves, cots)
+    _close_grads(got, want)
+
+
+# --------------------------------------------------------------------------- #
 # flash attention: against the plain version on the card; float32 at
 # rtol 2e-4 / atol 2e-5, bfloat16 at 2e-2 (outputs rounded to bf16), and
 # long bf16 prompts against the float32 plain version at rtol 8e-3 /
@@ -846,20 +954,12 @@ def test_flash_offset_shards_join_to_the_whole_sequence(card, dtype, shards):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_grad(card):
-    """The SSD, block-sparse and bitlinear CUDA routes have no backward: a
-    call whose float inputs need a gradient raises, never falls back to the
-    plain version, and the same call without a gradient runs."""
+    """The block-sparse and bitlinear CUDA routes have no backward: a call
+    whose float inputs need a gradient raises, never falls back to the
+    plain version, and the same call without a gradient runs.  (The SSD
+    scan has one: test_ssd_under_autograd_runs_the_backward_kernel.)"""
     from repro_torch.kernels.block_sparse import ops as bs_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.quant.bitnet import bit_linear_serve, pack_weight_ternary
-
-    dta, dtx, b, c = _ssd_operands(1, 2, 32, 8, 8, 1, card)
-    before = ssd_ops.LAUNCHES["float32"]
-    with pytest.raises(RuntimeError, match="ssd CUDA kernel has no backward"):
-        ssd_ops.ssd(dta, dtx.requires_grad_(), b, c, chunk=32)
-    assert ssd_ops.LAUNCHES["float32"] == before
-    with torch.no_grad():
-        ssd_ops.ssd(dta, dtx, b, c, chunk=32)
 
     x, w, mask = _sparse_operands(8, 256, 128, 128, 64, 0.5, torch.float32,
                                   2, card)

@@ -41,6 +41,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.models.moe, repro_torch.models.mamba2\n"
         "import repro_torch.models.hybrid\n"
         "import repro_torch.kernels.ssd.ops\n"
+        "from repro_torch.kernels.ssd.ops import SSDScan\n"
+        "from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.obs.metrics, repro_torch.obs.timeline\n"
         "import repro_torch.obs.roofline, repro_torch.obs.loadgen\n"
@@ -140,6 +142,15 @@ def test_distributed_code_catches_nothing():
     assert len(sources) >= 9
     for src in sources:
         assert not re.search(r"^\s*except\b", src, re.M)
+
+
+def test_ssd_wrapper_catches_nothing():
+    """The SSD wrapper holds no ``except`` and no retry: a CUDA input that
+    needs a gradient goes through the backward kernel or raises, never
+    through the plain version."""
+    src = (PORT / "kernels" / "ssd" / "ops.py").read_text()
+    assert not re.search(r"^\s*except\b", src, re.M)
+    assert "refuse_grad" not in src
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):

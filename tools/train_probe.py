@@ -3,6 +3,7 @@
 
     python3 tools/train_probe.py grad            # gradient check
     python3 tools/train_probe.py lr 1e-3 1e-4    # losses by learning rate
+    python3 tools/train_probe.py lr 1e-5 3e-5 --arch zamba2-7b --layers 12
 
 ``grad``: one loss and gradient of BitNet-1.58B (bf16, random weights from
 a seeded torch.Generator, one 4096-token sequence) through the flash
@@ -13,7 +14,8 @@ between the two.
 
 ``lr``: for each learning rate given, AdamW from the same initial state
 on the same sequence repeated for ``--steps`` steps; prints the losses
-and the seconds.
+and the seconds.  ``--arch`` names the registry config (BitNet-1.58B by
+default) and ``--layers`` cuts its depth (0: the config's own).
 
 Prints the card's name and power limit first, one JSON line per result.
 """
@@ -28,14 +30,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 
-def _model(seq: int):
+def _model(seq: int, arch: str = "bitnet-1.58b", layers: int = 0):
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batch
     from repro_torch.models import build_model
 
-    cfg = get_config("bitnet-1.58b")
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(layers=layers)
     api = build_model(cfg)
     batch = {k: torch.from_numpy(v).to(api.device) for k, v in
              synthetic_batch(cfg, batch=1, seq=seq, step=0).items()}
@@ -86,13 +90,13 @@ def grad(seq: int) -> None:
                       "leaves": leaves}), flush=True)
 
 
-def lr(rates, seq: int, steps: int) -> None:
+def lr(rates, seq: int, steps: int, arch: str, layers: int) -> None:
     import torch
 
     from repro_torch.train import AdamW, build_train_step
     from repro_torch.train.train_loop import TrainState
 
-    api, batch, params = _model(seq)
+    api, batch, params = _model(seq, arch, layers)
     for rate in rates:
         opt = AdamW(lr=rate)
         p = params()
@@ -103,7 +107,8 @@ def lr(rates, seq: int, steps: int) -> None:
         for _ in range(steps):
             state, m = step(state, batch)
             losses.append(float(m["loss"]))
-        print(json.dumps({"probe": "lr", "lr": rate, "seq": seq,
+        print(json.dumps({"probe": "lr", "arch": arch,
+                          "layers": api.cfg.layers, "lr": rate, "seq": seq,
                           "losses": losses,
                           "seconds": time.perf_counter() - t}), flush=True)
         del state, p, step
@@ -118,6 +123,8 @@ def main() -> int:
     ap.add_argument("rates", nargs="*", type=float)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--arch", default="bitnet-1.58b")
+    ap.add_argument("--layers", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_probe: no CUDA device", file=sys.stderr)
@@ -128,7 +135,7 @@ def main() -> int:
     if args.probe == "grad":
         grad(args.seq)
     else:
-        lr(args.rates, args.seq, args.steps)
+        lr(args.rates, args.seq, args.steps, args.arch, args.layers)
     return 0
 
 
