@@ -95,8 +95,10 @@ Phases, each printing one JSON line:
              terminal state's gradient: every gradient within rtol 1e-4 /
              atol 1e-5 x max|g|, two calls bit-equal, and ssd() under
              autograd launching the backward once with the same bits.
-             Times the backward, its device time, the plain backward, the
-             bound (no single PyTorch call computes it: library_ms null).
+             Times the backward, its device time (and each of its four
+             kernels'), the plain backward, the bounds (3xTF32 on the
+             tensor cores, the kernel's path, and float32 on the CUDA
+             cores; no single PyTorch call computes it: library_ms null).
 10. flash   — the flash-attention kernel against its plain version at
              Zamba2-7B's long-prompt prefill (B = 1, H = Hkv = 32,
              S = 4096, d = 112, causal, bf16 against the plain version in
@@ -296,33 +298,42 @@ def kernel_name(key: str) -> str:
     return head[-1].split("::")[-1] if head else ""
 
 
-def device_us(fn, iters: int, kernels, per_call: int = 1,
-              attempts: int = 2):
-    """Device time per call of the kernels named ``kernels`` (one function
-    name or several, matched exactly, so that no other kernel whose name
-    holds the same letters counts): every matching event of ``iters``
-    calls summed, over ``iters`` (a call may launch several kernels,
-    ``per_call``, as the SSD scan's three), from torch.profiler's CUDA
-    activity.  A trace that lacks any of the ``iters * per_call`` events is
-    taken again (``attempts`` in all), then None."""
+def device_us_by_kernel(fn, iters: int, kernels, per_call: int = 1,
+                        attempts: int = 3):
+    """Device time per call of each kernel named in ``kernels`` (one
+    function name or several, matched exactly, so that no other kernel
+    whose name holds the same letters counts), from torch.profiler's CUDA
+    activity over ``iters`` calls: {name: µs}.  A call may launch several
+    kernels (``per_call``, as the SSD scan's three); a trace that lacks
+    any of the ``iters * per_call`` events is taken again (``attempts`` in
+    all), then None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = {kernels} if isinstance(kernels, str) else set(kernels)
+    names = [kernels] if isinstance(kernels, str) else list(kernels)
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        total = count = 0
+        total, count = dict.fromkeys(names, 0.0), 0
         for evt in prof.key_averages():
-            if kernel_name(evt.key) in names:
-                total += evt.device_time_total
+            name = kernel_name(evt.key)
+            if name in total:
+                total[name] += evt.device_time_total
                 count += evt.count
         if count == iters * per_call:
-            return total / iters
+            return {k: v / iters for k, v in total.items()}
     return None
+
+
+def device_us(fn, iters: int, kernels, per_call: int = 1,
+              attempts: int = 3):
+    """The sum of :func:`device_us_by_kernel`'s times: µs per call, or
+    None."""
+    by_kernel = device_us_by_kernel(fn, iters, kernels, per_call, attempts)
+    return None if by_kernel is None else sum(by_kernel.values())
 
 
 def all_device_us(fn, iters: int, attempts: int = 3):
@@ -1487,12 +1498,13 @@ def phase_ssd_bwd():
     ([B, S, N]): every gradient within SSD_BWD_RTOL / SSD_BWD_ATOL_MAX x
     max|g|, two calls equal bit for bit; then the same through ssd() under
     autograd, which must launch the backward once and give the same bits.
-    Times the backward call, its device time, the plain backward, the
-    bound."""
+    Times the backward call, its device time (summed, and by kernel), the
+    plain backward, the bounds (the tensor cores' 3xTF32 rate, the
+    kernel's path, and the float32 CUDA cores')."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.cost import ssd_bwd_bound
+    from repro_torch.kernels.cost import F32_OPS_PER_S, ssd_bwd_bound
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
 
@@ -1542,9 +1554,14 @@ def phase_ssd_bwd():
         del want, again
         iters = 10 if s > 1024 else 30
         bound, by = ssd_bwd_bound(nb, nh, s, n, p, chunk, True, with_dh)
+        bound_f32, by_f32 = ssd_bwd_bound(nb, nh, s, n, p, chunk, True,
+                                          with_dh, op_rate=F32_OPS_PER_S)
+        by_kernel = device_us_by_kernel(call, 3, SSD_BWD_KERNELS,
+                                        per_call=len(SSD_BWD_KERNELS))
         rows.append({
             "shape": label, "b": nb, "h": nh, "s": s, "n": n, "p": p,
             "chunk": chunk, "shared_bc": True, "dh_final": with_dh,
+            "head_group": ssd_ops.head_group(nb, nh, -(-s // chunk)),
             "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
             "grad_max_abs": {k: float(g.abs().max()) for k, g in zip(
                 ("ddta", "ddtx", "db", "dc"), got)},
@@ -1552,10 +1569,12 @@ def phase_ssd_bwd():
                           "atol": f"{SSD_BWD_ATOL_MAX} * max|g|"},
             "bit_equal": bit_equal,
             "ms": cuda_ms(call, iters),
-            "device_us": device_us(call, 3, SSD_BWD_KERNELS,
-                                   per_call=len(SSD_BWD_KERNELS)),
+            "device_us": (sum(by_kernel.values()) if by_kernel is not None
+                          else None),
+            "device_us_by_kernel": by_kernel,
             "plain_ms": cuda_ms(lambda i: plain(), 2),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bound_f32_ms": bound_f32, "bound_f32_by": by_f32,
         })
         if with_dh:
             # through ssd() under autograd: the Function's backward is the
@@ -3702,10 +3721,11 @@ def main() -> int:
         ssd_bwd_launches[phase] = sums["ssd"].get("backward_float32", 0)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
 
-    # the SSD backward (ported PR 22): the counterpart of JAX's autodiff of
-    # its chunked scan, ssd_grouped_scan in the JAX model's train step
+    # the SSD backward (3xTF32 on the tensor cores, heads in groups): the
+    # counterpart of JAX's autodiff of its chunked scan, ssd_grouped_scan
+    # in the JAX model's train step
     ssd_bwd_entry = {
-        "name": "ssd_bwd", "route": "cuda", "ported": 22,
+        "name": "ssd_bwd", "route": "cuda", "ported": 22, "redesigned": 23,
         "source": "src/repro_torch/csrc/ssd_bwd.cu",
         "replaces": "src/repro/kernels/ssd/ref.py:100",
         "kernels_per_call": len(SSD_BWD_KERNELS),
@@ -3715,14 +3735,18 @@ def main() -> int:
         "bit_equal": all(r["bit_equal"] for r in ssd_bwd_rows),
         "shape": {k: ssd_bwd_rows[0][k] for k in (
             "shape", "b", "h", "s", "n", "p", "chunk", "shared_bc")},
+        "head_group": ssd_bwd_rows[0]["head_group"],
         "ms": ssd_bwd_rows[0]["ms"],
         "device_us": ssd_bwd_rows[0]["device_us"],
+        "device_us_by_kernel": ssd_bwd_rows[0]["device_us_by_kernel"],
         "plain_ms": ssd_bwd_rows[0]["plain_ms"],
         "bound_ms": ssd_bwd_rows[0]["bound_ms"],
-        "bound_by": ssd_bwd_rows[0]["bound_by"], "library_ms": None,
+        "bound_by": ssd_bwd_rows[0]["bound_by"],
+        "bound_f32_ms": ssd_bwd_rows[0]["bound_f32_ms"], "library_ms": None,
         "other_shapes": [{k: r[k] for k in (
-            "shape", "h", "s", "n", "p", "dh_final", "max_abs_err", "ms",
-            "device_us", "plain_ms", "bound_ms", "bound_by")}
+            "shape", "h", "s", "n", "p", "dh_final", "head_group",
+            "max_abs_err", "ms", "device_us", "device_us_by_kernel",
+            "plain_ms", "bound_ms", "bound_by", "bound_f32_ms")}
             for r in ssd_bwd_rows[1:]],
     }
     head = next(r for r in rows if r["stage"] == "mlp_up" and r["m"] == 1

@@ -87,8 +87,8 @@ ssd_kernel_state(const float* __restrict__ dta, Strides sa,
                  const float* __restrict__ Bm, Strides sb,
                  float* __restrict__ states, float* __restrict__ decay,
                  int heads, int S, int P, int N, int Q, int vec) {
-  ssd::chunk_outer<false>(dta, sa, dtx, sx, Bm, sb, states, decay, heads, S,
-                          P, N, Q, vec);
+  ssd::chunk_outer(dta, sa, dtx, sx, Bm, sb, states, decay, heads, S, P, N,
+                   Q, vec);
 }
 
 // 2. over the chunks in order: slot c <- h entering chunk c;

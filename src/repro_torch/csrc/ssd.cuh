@@ -1,9 +1,9 @@
 // ssd.cuh: what the SSD scan's forward (ssd.cu) and backward (ssd_bwd.cu)
 // share: the tile limits, the operands' strides, cp.async staging into
 // shared memory, the in-chunk cumulative sum of the log decays, and the
-// body of the per-chunk outer-product kernel, which computes the forward's
-// chunk state s_c = (B * exp(la_q - la))^T dtx and the backward's readout
-// gradient u_c = (C * exp(la))^T dy alike.
+// body of the forward's per-chunk outer-product kernel, which computes the
+// chunk state s_c = (B * exp(la_q - la))^T dtx (the backward's readout
+// gradient has a tensor-core kernel of its own in ssd_bwd.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -105,12 +105,10 @@ __device__ __forceinline__ void chunk_cumsum(const float* dta, long long ss,
 
 // The body of a kernel over the grid (chunks, heads, batch): out[b, h, c]
 // [N, P] = sum over the chunk's steps j of w_j a_j v_j^T, with
-// w_j = exp(la_j) when kReadout (the backward's u_c: a = C, v = dy) and
-// exp(la_q - la_j) otherwise (the forward's s_c: a = B, v = dtx; its total
-// log decay la_q goes to decay[b, h, c] when decay is not null).
+// w_j = exp(la_q - la_j) (the forward's s_c: a = B, v = dtx; its total log
+// decay la_q goes to decay[b, h, c] when decay is not null).
 // Thread (ty, tx) holds out[n][p] for p = 4 tx + k and n = 4 ty + 64 g + k'
 // (k, k' < 4, g < 2), reading a and v rows four floats at a time.
-template <bool kReadout>
 __device__ __forceinline__ void chunk_outer(
     const float* __restrict__ dta, Strides sa, const float* __restrict__ v,
     Strides sv, const float* __restrict__ a, Strides sm,
@@ -137,7 +135,7 @@ __device__ __forceinline__ void chunk_outer(
   cp_async_wait_all();
   __syncthreads();
   const float la_last = la[q - 1];
-  if (tid < q) ws[tid] = kReadout ? expf(la[tid]) : expf(la_last - la[tid]);
+  if (tid < q) ws[tid] = expf(la_last - la[tid]);
   __syncthreads();
 
   const int groups = (N + 63) / 64;

@@ -14,7 +14,9 @@ attention backward, a causal score tile's lower half, each input read once
 and each output written once).  The FLOP formulas count what the kernels
 issue, which is more: the bf16 flash forward multiplies P by V in two
 bf16 terms, the backward recomputes s and dp, and the SSD scan computes
-its score tile per head.
+its score tile per head, and the SSD backward its C B^T and its dB and dC
+products once a head group where the heads share B and C (the bound: once
+a batch).
 
 Rates are the H100 SXM data sheet's (dense tensor-core peaks).
 """
@@ -24,6 +26,9 @@ HBM_BYTES_PER_S = 3.35e12      # HBM3
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor cores
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # dense TF32 tensor cores
+# float32 products as three TF32 ones (hi.hi, hi.lo, lo.hi: 3xTF32)
+TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 
 
 def _bound(nbytes: float, ops: float, op_rate: float):
@@ -151,18 +156,20 @@ def ssd_flops(nb, nh, s, n, p, chunk) -> float:
 
 
 def _ssd_bwd_work(s: int, n: int, p: int, chunk: int):
-    """(score-tile multiply-adds, per-head multiply-adds) of the backward
-    over the chunks: the causal half of C B^T; per head the causal halves of
-    dy x^T and of the three products with the decay mask (dx, dB and dC),
-    and four N x P products a chunk (u_c, the state terms of dx and dB, the
-    readout term of dC)."""
-    scores = per_head = 0
+    """(multiply-adds a copy of B and C, per-head multiply-adds) of the
+    backward over the chunks.  A copy of B and C: the causal halves of
+    C B^T and of the masked tile's two products with B and C (dC and dB),
+    which act on the heads' sum of that tile where the heads share B and C
+    (they are linear in it).  Per head: the causal halves of dy x^T and of
+    (C B^T o L)^T dy (dx), and four N x P products a chunk (u_c, the state
+    terms of dx and dB, the readout term of dC)."""
+    per_copy = per_head = 0
     for s0 in range(0, s, chunk):
         q = min(chunk, s - s0)
         tri = q * (q + 1) // 2
-        scores += tri * n
-        per_head += tri * (2 * p + 2 * n) + 4 * q * n * p
-    return scores, per_head
+        per_copy += 3 * tri * n
+        per_head += 2 * tri * p + 4 * q * n * p
+    return per_copy, per_head
 
 
 def ssd_bwd_bytes(nb, nh, s, n, p, shared_bc, dh_final=False) -> float:
@@ -175,21 +182,40 @@ def ssd_bwd_bytes(nb, nh, s, n, p, shared_bc, dh_final=False) -> float:
                   + (nb * nh * n * p if dh_final else 0))
 
 
-def ssd_bwd_bound(nb, nh, s, n, p, chunk, shared_bc, dh_final=False):
-    """(bound ms, "bytes" | "operations") of the SSD backward:
-    :func:`ssd_bwd_bytes` over HBM against the chunked gradient's float32
-    multiply-adds at the float32 peak, C B^T once per batch where the heads
-    share B and C."""
+def ssd_bwd_ops(nb, nh, s, n, p, chunk, shared_bc) -> float:
+    """The least operations the SSD backward needs (:func:`_ssd_bwd_work`,
+    one copy of B and C per batch where the heads share them), each
+    product counted once."""
     bc_copies = nb if shared_bc else nb * nh
-    scores, per_head = _ssd_bwd_work(s, n, p, chunk)
-    ops = 2.0 * (bc_copies * scores + nb * nh * per_head)
-    return _bound(ssd_bwd_bytes(nb, nh, s, n, p, shared_bc, dh_final), ops,
-                  F32_OPS_PER_S)
+    per_copy, per_head = _ssd_bwd_work(s, n, p, chunk)
+    return 2.0 * (bc_copies * per_copy + nb * nh * per_head)
 
 
-def ssd_bwd_flops(nb, nh, s, n, p, chunk) -> float:
-    """What the backward kernels issue (``csrc/ssd_bwd.cu``): C B^T per
-    head, as the forward; the reverse pass and the heads' sum of dB and dC
-    (under 1 % of it) are not counted."""
-    scores, per_head = _ssd_bwd_work(s, n, p, chunk)
-    return 2.0 * nb * nh * (scores + per_head)
+def ssd_bwd_bound(nb, nh, s, n, p, chunk, shared_bc, dh_final=False,
+                  op_rate=TF32X3_OPS_PER_S):
+    """(bound ms, "bytes" | "operations") of the SSD backward:
+    :func:`ssd_bwd_bytes` over HBM against :func:`ssd_bwd_ops` at
+    ``op_rate``: by default the rate of the kernels' path, float32 products
+    as three TF32 ones on the tensor cores; ``F32_OPS_PER_S`` gives the
+    float32 CUDA-core bound."""
+    return _bound(ssd_bwd_bytes(nb, nh, s, n, p, shared_bc, dh_final),
+                  ssd_bwd_ops(nb, nh, s, n, p, chunk, shared_bc), op_rate)
+
+
+def ssd_bwd_flops(nb, nh, s, n, p, chunk, group=1) -> float:
+    """What the backward kernels issue (``csrc/ssd_bwd.cu``), each product
+    counted once (the tensor cores take it three times, as 3xTF32): per
+    group of ``group`` heads sharing B and C, the causal halves of C B^T
+    and of the head-summed masked tile's two products with B and C (dC and
+    dB); per head the causal halves of dy x^T and of (C B^T o L)^T dy, and
+    five N x P products a chunk (u_c, C H_in, B G, dy H_in^T, x G^T).
+    ``group`` 1 where each head has its own B and C.  The reverse pass and
+    the sum of the groups' partials (under 1 %) are not counted."""
+    per_group = per_head = 0
+    for s0 in range(0, s, chunk):
+        q = min(chunk, s - s0)
+        tri = q * (q + 1) // 2
+        per_group += 3 * tri * n
+        per_head += 2 * tri * p + 5 * q * n * p
+    groups = -(-nh // group)
+    return 2.0 * nb * (groups * per_group + nh * per_head)

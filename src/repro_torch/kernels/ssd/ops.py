@@ -22,8 +22,9 @@ call; its backward is the backward kernel (``csrc/ssd_bwd.cu``, custom op
 ``repro_torch::ssd_scan_bwd``, counted in ``LAUNCHES["backward_float32"]``)
 on the card and ``ssd_chunked_bwd_ref`` on the CPU.  B and C may also come
 as ``[B, S, N]`` shared by the heads (Mamba-2's single group): the
-backward kernel then sums their gradients over the heads itself, in a
-fixed order.
+backward kernel then takes the heads in groups (:func:`head_group`), sums
+their gradients over each group's heads inside a block and the groups'
+partials after it, in a fixed order.
 """
 from __future__ import annotations
 
@@ -46,6 +47,14 @@ BACKENDS = ("auto", "reference", "naive", "cuda")
 LAUNCHES: Dict[str, int] = {"float32": 0, "backward_float32": 0}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
+
+# the H100's streaming multiprocessors (where no card is present to say),
+# and a head group's fixed cost in heads' work (C B^T, the group's dB and
+# dC products and its staging), fitted to the scan kernel's times at
+# G = 2 .. 28 on the three rows of chip_smoke.SSD_BWD_SHAPES
+# (tools/ssd_bwd_ab.py --groups; 1.45 fits best, 0.5 leaves 7x the
+# squared log error), which :func:`head_group` weighs
+SMS, GROUP_COST = 132, 1.5
 
 # scans a traced run took by route (:func:`route`)
 ROUTES: Dict[str, int] = {"kernel": 0, "grouped": 0}
@@ -200,14 +209,38 @@ def _ssd_bytes(dta, dtx, b, c, scratch, chunk):
     return cost.ssd_bytes(nb, nh, s, b.shape[-1], p, shared)
 
 
+def head_group(nb: int, nh: int, nc: int) -> int:
+    """Heads a block of the backward's scan takes where they share B and C:
+    the G that minimises (waves of ceil(H / G) x chunks x batch blocks,
+    one block an SM of the card's, or of an H100's where no card is
+    present) x (G + GROUP_COST), the larger G on a tie (fewer partials to
+    sum).  A block computes C B^T once for its group and its dB and dC
+    products once, so a larger G saves work until the grid no longer
+    fills the card: 28 at Zamba2-7B's training shape (112 heads, 32
+    chunks: 128 blocks, one wave), 6 at Mamba2-130m's (24 heads: 128
+    blocks), 7 at a 1000-token Zamba2 prompt (8 chunks: 128 blocks), each
+    the fastest G measured there."""
+    sms = (torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+        if torch.cuda.is_available() else SMS)
+
+    def cost(g):
+        blocks = -(-nh // g) * nc * nb
+        return -(-blocks // sms) * (g + GROUP_COST)
+
+    return min(range(1, nh + 1), key=lambda g: (cost(g), -g))
+
+
 def bwd_work_sizes(nb: int, nh: int, s: int, n: int, p: int, chunk: int,
                    shared: bool) -> tuple:
     """Float32 elements of the backward's scratch, which the wrapper
     allocates as one: the state gradients ``[B, H, nc, N, P]`` and, where
-    the heads share B and C, each head's dB and dC ``[B, H, S, N]`` before
-    their sum over the heads."""
+    the heads share B and C, each head group's dB and dC
+    ``[B, ceil(H / G), S, N]`` (:func:`head_group`) before their sum over
+    the groups."""
     nc = -(-s // chunk)
-    return nb * nh * nc * n * p, 2 * nb * nh * s * n if shared else 0
+    groups = -(-nh // head_group(nb, nh, nc)) if shared else 0
+    return nb * nh * nc * n * p, 2 * nb * groups * s * n
 
 
 def _bwd_work(dtx, b, chunk: int) -> torch.Tensor:
@@ -270,11 +303,12 @@ def _launch_bwd(dta, dtx, b, c, dy, scratch, h_final, dh_final, chunk: int,
     if s == 0:
         return ddta.zero_(), ddtx.zero_(), db.zero_(), dc.zero_()
     n_grads, n_part = bwd_work_sizes(nb, nh, s, n, p, chunk, shared)
+    group = head_group(nb, nh, -(-s // chunk)) if shared else 1
     if work is None:
         work = _bwd_work(dtx, b, chunk)
     if shared:
         part_b, part_c = work[n_grads:n_grads + n_part].view(
-            2, nb, nh, s, n).unbind(0)
+            2, nb, -(-nh // group), s, n).unbind(0)
         heads_b, heads_c, sums = part_b, part_c, (db, dc)
     else:
         heads_b, heads_c, sums = db, dc, (None, None)
@@ -284,7 +318,7 @@ def _launch_bwd(dta, dtx, b, c, dy, scratch, h_final, dh_final, chunk: int,
     fn = library("ssd_bwd").ssd_bwd_launch
     if fn.argtypes is None:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [vp, ll, ll, ll] * 9 + [vp] * 7 + [ci] * 6 + [vp]
+        fn.argtypes = [vp, ll, ll, ll] * 9 + [vp] * 7 + [ci] * 7 + [vp]
         fn.restype = ci
     args = []
     for t in (dta, dtx, b4, c4, dy, ddta, ddtx, heads_b, heads_c):
@@ -292,11 +326,11 @@ def _launch_bwd(dta, dtx, b, c, dy, scratch, h_final, dh_final, chunk: int,
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = fn(*args, states, decay, ptr(h_final), ptr(dh_final),
             work.data_ptr(), ptr(sums[0]), ptr(sums[1]), nb, nh, s, p, n,
-            chunk, torch.cuda.current_stream(dtx.device).cuda_stream)
+            chunk, group, torch.cuda.current_stream(dtx.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd backward kernel launch failed: CUDA error "
                            f"{rc} (B={nb} H={nh} S={s} P={p} N={n} "
-                           f"chunk={chunk} shared={shared})")
+                           f"chunk={chunk} shared={shared} group={group})")
     LAUNCHES["backward_float32"] += 1
     return ddta, ddtx, db, dc
 
@@ -322,7 +356,8 @@ def _(dta, dtx, b, c, dy, scratch, h_final, dh_final, work, chunk):
 def _ssd_bwd_flops(dta, dtx, b, c, dy, scratch, h_final, dh_final, work,
                    chunk, *a, **kw):
     nb, nh, s, p = dtx.shape
-    return int(cost.ssd_bwd_flops(nb, nh, s, b.shape[-1], p, chunk))
+    group = head_group(nb, nh, -(-s // chunk)) if b.ndim == 3 else 1
+    return int(cost.ssd_bwd_flops(nb, nh, s, b.shape[-1], p, chunk, group))
 
 
 def _ssd_bwd_bytes(dta, dtx, b, c, dy, scratch, h_final, dh_final, work,

@@ -9,15 +9,17 @@
                         one ``[B, H, q, q]`` tile live, C Bᵀ once per batch
                         for the head-shared B and C.
 ``ssd_chunked_bwd_ref`` — the chunked scan's gradient in closed form, in
-                        the backward kernel's own three steps
-                        (``csrc/ssd_bwd.cu``).
+                        three steps: the state gradients, the products
+                        in a chunk, the log decay's gradient (the
+                        backward kernels, ``csrc/ssd_bwd.cu``, compute the
+                        same gradient).
 
 Inputs are pre-scaled (``dta = dt * A`` [negative], ``dtx = dt * x``) and
 computed in float32; see ``csrc/ssd.cu`` for the recurrence.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -156,6 +158,7 @@ def ssd_chunked_bwd_ref(
     *,
     chunk: int = 128,
     dh_final: Optional[torch.Tensor] = None,   # [BH, N, P]
+    matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`ssd_chunked_ref` (y and, through
     ``dh_final``, the terminal state) with respect to dta, dtx, b and c,
@@ -178,7 +181,9 @@ def ssd_chunked_bwd_ref(
        <G, exp(A) H_in + s> at the chunk's last step (A's two terms), and
        ddta is its reverse cumulative sum inside the chunk.
 
-    Every exponent is <= 0 for negative dta, as in the forward."""
+    Every exponent is <= 0 for negative dta, as in the forward.  Every
+    product goes through ``matmul`` (batched ``a @ b``), so that a test can
+    put the kernel's arithmetic in its place."""
     bh, s, p = dtx.shape
     n = b.shape[-1]
     f32 = torch.float32
@@ -203,7 +208,8 @@ def ssd_chunked_bwd_ref(
     w_out = torch.exp(a_tot[..., None] - la)              # exp(A - la_j)
 
     # the forward's chunk states and the states entering each chunk
-    own = torch.einsum("bcjn,bcjp->bcnp", b_c * w_out[..., None], x)
+    mT = lambda t: t.transpose(-1, -2)                    # noqa: E731
+    own = matmul(mT(b_c * w_out[..., None]), x)
     h = torch.zeros((bh, n, p), dtype=f32, device=dtx.device)
     h_in = []
     for k in range(nc):
@@ -213,7 +219,7 @@ def ssd_chunked_bwd_ref(
     h_out = torch.cat([h_in[:, 1:], h[:, None]], dim=1)
 
     # 1. the state gradients, last chunk first
-    u = torch.einsum("bcin,bcip->bcnp", c_c * w_in[..., None], g_y)
+    u = matmul(mT(c_c * w_in[..., None]), g_y)
     g = (torch.zeros((bh, n, p), dtype=f32, device=dtx.device)
          if dh_final is None else dh_final.to(f32))
     g_out = [None] * nc
@@ -223,14 +229,12 @@ def ssd_chunked_bwd_ref(
     g_out = torch.stack(g_out, dim=1)                     # [bh, nc, n, p]
 
     # 2. the intra-chunk products and the state terms
-    scores = torch.einsum("bcin,bcjn->bcij", c_c, b_c) * decay
-    dyx = torch.einsum("bcip,bcjp->bcij", g_y, x) * decay
-    ddtx = (torch.einsum("bcij,bcip->bcjp", scores, g_y)
-            + w_out[..., None] * torch.einsum("bcjn,bcnp->bcjp", b_c, g_out))
-    dc = (torch.einsum("bcij,bcjn->bcin", dyx, b_c)
-          + w_in[..., None] * torch.einsum("bcip,bcnp->bcin", g_y, h_in))
-    db = (torch.einsum("bcij,bcin->bcjn", dyx, c_c)
-          + w_out[..., None] * torch.einsum("bcjp,bcnp->bcjn", x, g_out))
+    scores = matmul(c_c, mT(b_c)) * decay
+    dyx = matmul(g_y, mT(x)) * decay
+    ddtx = (matmul(mT(scores), g_y)
+            + w_out[..., None] * matmul(b_c, g_out))
+    dc = (matmul(dyx, b_c) + w_in[..., None] * matmul(g_y, mT(h_in)))
+    db = (matmul(mT(dyx), c_c) + w_out[..., None] * matmul(x, mT(g_out)))
 
     # 3. the log-decay gradient and its reverse cumulative sum
     dla = (c_c * dc).sum(-1) - (x * ddtx).sum(-1)

@@ -43,6 +43,21 @@ def test_ablation_variants_apply_to_kernel_source():
         assert name == "base" or text != src, name
 
 
+def test_ssd_bwd_ablation_variants_apply_to_kernel_source():
+    """tools/ssd_bwd_ablations.py builds its variants by text substitution
+    of ssd_bwd.cu: every anchor must still be found in the committed
+    source, and every variant must differ from the base."""
+    tool = _tool("ssd_bwd_ablations")
+    src = (Path(build.CSRC) / "ssd_bwd.cu").read_text()
+    out = tool.variants(src)
+    assert out["base"] == src
+    assert {"no_s1", "no_exp", "no_state", "stores_only", "no_dx",
+            "no_group_products", "no_stage_yx", "one_term",
+            "unroll_2"} <= set(out)
+    for name, text in out.items():
+        assert name == "base" or text != src, name
+
+
 def test_single_rounding_variant_applies_to_backward_source():
     """tools/flash_bwd_rounding.py rounds ds once by turning the backward's
     two split products (dk += ds^T q, dq += ds k) into single ones: both

@@ -471,6 +471,96 @@ def test_ssd_bwd_kernel_matches_plain_version(card, nb, nh, s, n, p, chunk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nh,group,s,n,chunk,with_dh", [
+    (7, 3, 300, 64, 128, True), (6, 6, 256, 128, 128, False),
+    (5, 2, 200, 40, 64, True), (9, 4, 1000, 64, 128, False)])
+def test_ssd_bwd_head_groups_match_plain_version(card, monkeypatch, nh, group,
+                                                 s, n, chunk, with_dh):
+    """The backward with its heads taken G to a block (a ragged last group
+    where G does not divide the heads), B and C shared: within the plain
+    backward's tolerance, two calls bit-equal.  The card's own choice
+    (``ops.head_group``) gives G = 1 at these small grids."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    monkeypatch.setattr(ssd_ops, "head_group", lambda nb, nh, nc: group)
+    nb, p = 1, 64
+    dta, dtx, b4, c4 = _ssd_operands(nb, nh, s, n, p, s + n + nh, card)
+    rng = np.random.default_rng(s + nh)
+    dy = torch.from_numpy(rng.standard_normal((nb, nh, s, p)).astype(
+        np.float32)).to(card)
+    dh = (torch.from_numpy(rng.standard_normal((nb, nh, n, p)).astype(
+        np.float32)).to(card) if with_dh else None)
+    scratch = ssd_ops._scratch(dtx, n, chunk)
+    _, h = ssd_ops._launch(dta, dtx, b4, c4, chunk, with_dh, scratch)
+    b, c = b4[:, 0], c4[:, 0]
+    got = ssd_ops._launch_bwd(dta, dtx, b, c, dy, scratch, h, dh, chunk)
+    again = ssd_ops._launch_bwd(dta, dtx, b, c, dy, scratch, h, dh, chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _close_grads(got, _ssd_bwd_plain(dta, dtx, b, c, dy, chunk, dh))
+
+
+# fills every block's dynamic shared memory, as much as a block may take,
+# with a quiet NaN: what an earlier kernel may leave there
+_POISON_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void poison_smem(int floats) {
+  extern __shared__ float smem[];
+  volatile float* v = smem;
+  for (int i = threadIdx.x; i < floats; i += blockDim.x)
+    v[i] = __int_as_float(0x7fc00000);
+}
+
+extern "C" int poison_launch(int blocks) {
+  int bytes = 0;
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, 0);
+  cudaFuncSetAttribute(poison_smem,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  poison_smem<<<blocks, 1024, bytes>>>(bytes / 4);
+  cudaDeviceSynchronize();
+  return cudaGetLastError();
+}
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssd_bwd_ignores_stale_shared_memory(card, tmp_path, shared):
+    """A short last chunk whose length is no multiple of 8 (300 = 2 x 128 +
+    44) after a kernel that left NaN in every SM's shared memory: the
+    products run to depth round8(q) and must read zeros, not what was
+    there, past the chunk's end.  Finite and within the plain backward's
+    tolerance."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    src, lib = tmp_path / "poison.cu", tmp_path / "libpoison.so"
+    src.write_text(_POISON_CU)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    poison = ctypes.CDLL(str(lib)).poison_launch
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    nb, nh, s, n, p, chunk = 1, 7, 300, 64, 64, 128
+    dta, dtx, b4, c4 = _ssd_operands(nb, nh, s, n, p, 17, card, shared)
+    b, c = (b4[:, 0], c4[:, 0]) if shared else (b4, c4)
+    rng = np.random.default_rng(18)
+    dy = torch.from_numpy(rng.standard_normal((nb, nh, s, p)).astype(
+        np.float32)).to(card)
+    scratch = ssd_ops._scratch(dtx, n, chunk)
+    _, h = ssd_ops._launch(dta, dtx, b4, c4, chunk, False, scratch)
+    torch.cuda.synchronize()
+    assert poison(8 * sms) == 0
+    got = ssd_ops._launch_bwd(dta, dtx, b, c, dy, scratch, h, None, chunk)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_grads(got, _ssd_bwd_plain(dta, dtx, b, c, dy, chunk, None))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("return_state", [False, True])
 def test_ssd_under_autograd_runs_the_backward_kernel(card, return_state):
     """ssd() on CUDA inputs that need a gradient goes through SSDScan: one

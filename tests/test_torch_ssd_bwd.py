@@ -134,6 +134,150 @@ def test_ssd_gradient_with_shared_b_c_matches_jax_grouped_scan(
         _close(g.numpy(), w)
 
 
+def _tf32(t, nearest=True):
+    """float32 to TF32 (10 mantissa bits) on the int32 view: to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds and the backward
+    kernel rounds its hi parts, or toward zero, as the tensor cores read a
+    float32 operand (the kernel's lo parts)."""
+    i = t.view(torch.int32)
+    return ((i + 0x1000 if nearest else i) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """``a @ b`` as the backward kernel takes it on the tensor cores: each
+    float32 operand split as hi = tf32(x) to nearest, lo = x - hi truncated
+    to TF32, the sum lo.hi + hi.lo, then hi.hi, in float32 (lo.lo
+    dropped)."""
+    a, b = a.contiguous(), b.contiguous()
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b - b_hi, False)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def test_tf32_rounding_to_nearest_away_and_toward_zero():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
+    assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                                 -(1.0 + 2.0 ** -10), 1.0]
+    assert _tf32(x, False).tolist() == [1.0, 1.0 + 2.0 ** -10, -1.0, 1.0]
+
+
+@pytest.mark.parametrize("s,n,with_dh", [(512, 64, False), (512, 64, True),
+                                         (640, 128, False), (600, 128, True)])
+def test_bwd_ref_with_3xtf32_products_matches_jax_vjp(s, n, with_dh):
+    """The plain backward with every product in 3xTF32 (the backward
+    kernel's tensor-core arithmetic) against ``jax.vjp`` of the chunked
+    scan at the kernel's tolerance, chunk 128, P = 64: the split keeps
+    float32's accuracy where one TF32 product would not."""
+    p, chunk = 64, 128
+    dta, dtx, b, c, dy, dh = _inputs((3,), s, p, n, s + n + 7)
+    want = _jax_vjp(jax_chunked, chunk, s, 1, (dta, dtx, b, c), dy,
+                    dh if with_dh else np.zeros_like(dh))
+    got = ssd_chunked_bwd_ref(
+        *(torch.from_numpy(t) for t in (dta, dtx, b, c, dy)), chunk=chunk,
+        dh_final=torch.from_numpy(dh) if with_dh else None,
+        matmul=_mm_3xtf32)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+def _group_bwd(dta, dtx, b, c, dy, chunk, dh_final, group, mm):
+    """The backward kernel's own arithmetic (``csrc/ssd_bwd.cu``) in plain
+    tensor operations, for B and C ``[B, S, N]`` shared by the heads:
+    C B^T once, per head M1 = (dy x^T) o L, its sum over a group of
+    ``group`` heads taken in head order, the group's dC and dB as
+    (sum M1) B and (sum M1)^T C after the heads' state terms, the groups'
+    partials summed in order; dla from the row and column sums of
+    M1 o (C B^T) and the state terms' row dots.  Products through ``mm``."""
+    nb, nh, s, p = dtx.shape
+    n = b.shape[-1]
+    pad = (-s) % chunk
+    f = lambda t: F.pad(t, (0, 0, 0, pad))              # noqa: E731
+    dta, dtx, dy, b, c = F.pad(dta, (0, pad)), f(dtx), f(dy), f(b), f(c)
+    nc, q = (s + pad) // chunk, chunk
+    mT = lambda t: t.transpose(-1, -2)                  # noqa: E731
+    la = torch.cumsum(dta.reshape(nb, nh, nc, q), -1)
+    a_tot = la[..., -1]
+    x, gy = dtx.reshape(nb, nh, nc, q, p), dy.reshape(nb, nh, nc, q, p)
+    bc, cc = b.reshape(nb, 1, nc, q, n), c.reshape(nb, 1, nc, q, n)
+    idx = torch.arange(q)
+    lower = idx[:, None] >= idx[None, :]
+    L = torch.where(lower, torch.exp(torch.where(
+        lower, la[..., :, None] - la[..., None, :], 0.0)), 0.0)
+    ev, fv = torch.exp(la)[..., None], torch.exp(a_tot[..., None] - la)[
+        ..., None]
+    # entering states and state gradients, as the kernels 1 and 2 and the
+    # forward leave them
+    own = mm(mT(bc * fv), x)
+    u = mm(mT(cc * ev), gy)
+    h = torch.zeros(nb, nh, n, p)
+    h_in = []
+    for k in range(nc):
+        h_in.append(h)
+        h = torch.exp(a_tot[..., k])[..., None, None] * h + own[:, :, k]
+    h_in = torch.stack(h_in, 2)
+    h_out = torch.cat([h_in[:, :, 1:], h[:, :, None]], 2)
+    g = torch.zeros(nb, nh, n, p) if dh_final is None else dh_final
+    g_out = [None] * nc
+    for k in reversed(range(nc)):
+        g_out[k] = g
+        g = torch.exp(a_tot[..., k])[..., None, None] * g + u[:, :, k]
+    g_out = torch.stack(g_out, 2)
+
+    cb = mm(cc, mT(bc))                                 # once per batch
+    m1 = mm(gy, mT(x)) * L
+    t = m1 * cb
+    bg = mm(bc, g_out)
+    dla = (t.sum(-1) - t.sum(-2)
+           + ev[..., 0] * (gy * mm(cc, h_in)).sum(-1)
+           - fv[..., 0] * (x * bg).sum(-1))
+    dla[..., -1] += (g_out * h_out).sum((-2, -1))
+    ddta = torch.flip(torch.cumsum(torch.flip(dla, (-1,)), -1), (-1,))
+    ddtx = fv * bg + mm(mT(cb * L), gy)
+
+    dc_parts, db_parts = [], []
+    for h0 in range(0, nh, group):
+        dcp = dbp = msum = 0
+        for hh in range(h0, min(h0 + group, nh)):
+            dcp = dcp + mm(ev[:, hh] * gy[:, hh], mT(h_in[:, hh]))
+            dbp = dbp + mm(fv[:, hh] * x[:, hh], mT(g_out[:, hh]))
+            msum = msum + m1[:, hh]
+        dc_parts.append(dcp + mm(msum, bc[:, 0]))
+        db_parts.append(dbp + mm(mT(msum), cc[:, 0]))
+    dc, db = dc_parts[0], db_parts[0]
+    for dcp, dbp in zip(dc_parts[1:], db_parts[1:]):
+        dc, db = dc + dcp, db + dbp
+
+    def back(t, *tail):
+        return t.reshape(*t.shape[:-2 - len(tail)], nc * q, *tail)[
+            ..., :s, :] if tail else t.reshape(nb, nh, nc * q)[..., :s]
+
+    return (back(ddta), back(ddtx, p), db.reshape(nb, nc * q, n)[:, :s],
+            dc.reshape(nb, nc * q, n)[:, :s])
+
+
+@pytest.mark.parametrize("h,group,s,n,with_dh", [
+    (6, 3, 512, 64, False), (7, 3, 600, 64, True), (5, 2, 512, 128, True),
+    (4, 4, 300, 128, False)])
+def test_head_group_partial_sums_match_jax_grouped_scan(h, group, s, n,
+                                                        with_dh):
+    """The backward kernel's arithmetic with its head groups (a ragged
+    last group where ``group`` does not divide the heads), 3xTF32
+    products, against ``jax.vjp`` of the grouped scan at the kernel's
+    tolerance, chunk 128, P = 64, B and C shared by the heads."""
+    p, chunk = 64, 128
+    dta, dtx, b, c, dy, dh = _inputs((1, h), s, p, n, s + h + n,
+                                     shared=True)
+    want = _jax_vjp(jax_grouped, chunk, s, 2, (dta, dtx, b, c), dy,
+                    dh if with_dh else np.zeros_like(dh))
+    got = _group_bwd(*(torch.from_numpy(t) for t in (dta, dtx, b, c, dy)),
+                     chunk, torch.from_numpy(dh) if with_dh else None,
+                     group, _mm_3xtf32)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        _close(g.numpy(), w)
+
+
 @pytest.fixture
 def count_plain_backward(monkeypatch):
     """Calls of SSDScan's CPU backward (the plain closed form)."""
@@ -190,10 +334,13 @@ def test_ssd_scan_function_matches_autograd_of_plain_version(
 def test_bwd_custom_op_fake_outputs_flops_and_bytes():
     """The backward's custom op traces on fake tensors: ddta and ddtx in
     [B, S, H, ...] memory order, dB and dC in B's shape (summed over the
-    heads for a ``[B, S, N]`` B); its FLOP formula counts the plain
-    backward's products over the causal halves of the q x q tiles (the
-    plain version computes whole tiles, and recomputes each chunk's own
-    state); its byte formula is ``cost.ssd_bwd_bytes``."""
+    heads for a ``[B, S, N]`` B); its FLOP formula counts the kernels'
+    products, C B^T and the group's dB and dC products once per head group
+    where the heads share B and C (``ops.head_group``); per head each has
+    the plain backward's products over the causal halves of the q x q
+    tiles (the plain version computes whole tiles, and recomputes each
+    chunk's own state where the kernel computes C H_in, as many
+    operations); its byte formula is ``cost.ssd_bwd_bytes``."""
     nb, nh, s, p, n, chunk = 2, 3, 40, 16, 8, 16
     with FakeTensorMode():
         dtx = torch.empty(nb, nh, s, p)
@@ -209,8 +356,10 @@ def test_bwd_custom_op_fake_outputs_flops_and_bytes():
             assert ddtx.stride() == torch.empty(nb, s, nh, p).transpose(
                 1, 2).stride()
             assert db.shape == b.shape and dc.shape == b.shape
+            group = ops.head_group(nb, nh, -(-s // chunk)) \
+                if b.ndim == 3 else 1
             assert fc.get_total_flops() == cost.ssd_bwd_flops(
-                nb, nh, s, n, p, chunk)
+                nb, nh, s, n, p, chunk, group)
             assert ops.BYTES[torch.ops.repro_torch.ssd_scan_bwd](
                 dta, dtx, b, b, dtx, scratch, None, None, work, chunk) == \
                 cost.ssd_bwd_bytes(nb, nh, s, n, p, b.ndim == 3)
@@ -219,14 +368,52 @@ def test_bwd_custom_op_fake_outputs_flops_and_bytes():
     with FlopCounterMode(display=False) as fc:
         ssd_chunked_bwd_ref(torch.randn(bh, 128) * 0.01, *args, chunk=q)
     tri, nc = q * (q + 1) // 2, 128 // q
-    surplus = 2 * bh * nc * ((q * q - tri) * (3 * n + 2 * p) + q * n * p)
+    surplus = 2 * bh * nc * (q * q - tri) * (3 * n + 2 * p)
     assert cost.ssd_bwd_flops(1, bh, 128, n, p, q) == \
         fc.get_total_flops() - surplus
-    # the bound: C B^T once per batch where the heads share B and C
-    shared, _ = cost.ssd_bwd_bound(1, 112, 4096, 64, 64, 128, True)
-    per_head, by = cost.ssd_bwd_bound(1, 112, 4096, 64, 64, 128, False)
+    # a head group of G takes C B^T and its dB and dC products once
+    assert cost.ssd_bwd_flops(1, 8, 128, n, p, q, 4) == \
+        cost.ssd_bwd_flops(1, 8, 128, n, p, q) - 2 * 6 * nc * 3 * tri * n
+    # the bound: C B^T and the dB and dC products once per batch where the
+    # heads share B and C, on the tensor cores as 3xTF32 and on the float32
+    # CUDA cores
+    f32 = cost.F32_OPS_PER_S
+    shared, _ = cost.ssd_bwd_bound(1, 112, 4096, 64, 64, 128, True,
+                                   op_rate=f32)
+    per_head, by = cost.ssd_bwd_bound(1, 112, 4096, 64, 64, 128, False,
+                                      op_rate=f32)
     assert by == "operations" and shared < per_head
     assert 2 < shared / cost.ssd_bound(1, 112, 4096, 64, 64, 128, True)[0] < 3
+    tensor, by = cost.ssd_bwd_bound(1, 112, 4096, 64, 64, 128, True)
+    assert by == "operations"
+    assert tensor == pytest.approx(shared * f32 / cost.TF32X3_OPS_PER_S)
+
+
+@pytest.mark.parametrize("nb,nh,nc,want", [
+    (1, 112, 32, 28), (1, 24, 32, 6), (1, 112, 8, 7), (1, 7, 3, 1)])
+def test_head_group_fills_one_wave_of_an_h100(monkeypatch, nb, nh, nc, want):
+    """The wave model's G on an H100's 132 SMs: at Zamba2-7B's and
+    Mamba2-130m's training shapes and a 1000-token Zamba2 prompt, the G
+    whose grid is one wave (the fastest measured there); G = 1 where even
+    G = 1 leaves SMs idle."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ops.head_group(nb, nh, nc) == want
+    blocks = -(-nh // want) * nc * nb
+    assert blocks <= ops.SMS
+
+
+@pytest.mark.parametrize("nb,nh,s,n,p,chunk", [
+    (1, 112, 4096, 64, 64, 128), (1, 24, 4096, 128, 64, 128),
+    (1, 112, 1000, 64, 64, 128), (2, 7, 300, 16, 8, 32)])
+def test_ssd_bwd_bound_counts_no_more_than_the_kernels_issue(nb, nh, s, n,
+                                                             p, chunk):
+    """The bound's operations never exceed what the kernels issue, at any
+    head group: with shared B and C at every G <= H, per head at G = 1."""
+    shared = cost.ssd_bwd_ops(nb, nh, s, n, p, chunk, True)
+    for group in range(1, nh + 1):
+        assert shared <= cost.ssd_bwd_flops(nb, nh, s, n, p, chunk, group)
+    assert cost.ssd_bwd_ops(nb, nh, s, n, p, chunk, False) <= \
+        cost.ssd_bwd_flops(nb, nh, s, n, p, chunk)
 
 
 # --------------------------------------------------------------------------- #
