@@ -23,8 +23,8 @@ Phases, each printing one JSON line:
              against the same model on the CPU (prefill + decode logits).
 4. serve   — full BitNet-1.58B (32 layers, full width, bf16, random weights
              from a seeded torch.Generator) through ServeEngine with a
-             LegionServeBackend at kernel granularity: 8 requests, launch
-             counts taken around the run; every request must finish and
+             LegionServeBackend at kernel granularity: 8 requests of
+             SERVE_NEW_TOKENS, launch counts taken around the run; every request must finish and
              backend.cross_validate must be ok with worst error 0.
 5. window  — one decode step (m=1, context 16) at window granularity:
              outputs and tallies must equal kernel granularity, which must
@@ -191,14 +191,16 @@ Phases, each printing one JSON line:
              bit to an uninterrupted run, and a save then restore is
              bit-exact.
 18. train   — full-width BitNet-1.58B (32 layers, d_model 2560, bf16,
-             fake-quant with straight-through estimators, remat per block;
-             random weights from a seeded torch.Generator) trains 4 AdamW
-             steps (lr TRAIN_LR) on one 4096-token sequence: finite losses and
-             gradient norms, the last loss below the first, and exactly 256
-             flash forward launches with the lse (32 layers + 32 recomputed
-             by remat, per step) and 128 backward calls; per-step seconds,
-             tokens/s, peak memory, and one more step traced by
-             torch.profiler (device idle share, top device kernels).
+             fake-quant with straight-through estimators, JAX's two-level
+             remat: 4 groups of 8 layers; random weights from a seeded
+             torch.Generator) trains 4 AdamW steps (lr TRAIN_LR) on one
+             4096-token sequence: finite losses and gradient norms, the last
+             loss below the first, and exactly 384 flash forward launches
+             with the lse (each of 32 layers 3 times a step: the step's, its
+             group's recomputation, its own) and 128 backward calls;
+             per-step seconds, tokens/s, peak memory, and one more step
+             traced by torch.profiler (device idle share, top device
+             kernels), then one counted by FlopCounterMode.
 
 18b. ssm_train_model — reduced Mamba2-130m and Zamba2-7B (float32, no
              quantization, 3072-token sequences, so Zamba2's attention takes
@@ -208,13 +210,34 @@ Phases, each printing one JSON line:
              rel 1e-5; exact SSD and flash launch counts (ssm_launches).
 18c. ssm_train — Mamba2-130m at full size and Zamba2-7B at full width cut
              to SSM_TRAIN_ZAMBA2_LAYERS = 12 of its 81 layers (bf16,
-             fake-quant with STE, remat per block; random weights from a
-             seeded torch.Generator) train 4 AdamW steps (SSM_TRAIN_LR) on
-             one 4096-token sequence: finite losses, each below the one
-             before; per step 2 SSD forward launches for each remat'd SSM
-             layer (Zamba2's last period is not remat'd, as in JAX: one)
-             and one backward, flash as in train; per-step seconds,
-             tokens/s, peak memory, one more step traced.
+             fake-quant with STE; Mamba2-130m's 24 layers in JAX's
+             two-level remat, 4 groups of 6, Zamba2's periods remat'd
+             whole, as in JAX; random weights from a seeded
+             torch.Generator) train 4 AdamW steps (SSM_TRAIN_LR) on one
+             4096-token sequence: finite losses, each below the one
+             before; per step 3 SSD forward launches a Mamba2 layer, 2 a
+             layer of a remat'd Zamba2 period (its last period is not
+             remat'd, as in JAX: one), and one backward, flash as in
+             train; per-step seconds, tokens/s, peak memory, one more step
+             traced, one counted by FlopCounterMode.
+18d. launch — the dry run (repro_torch.launch.dryrun, fake tensors, no
+             kernel runs; its traces run in processes of their own beside
+             the phases from 5b serve_load on): its one-card predictions
+             of phase train's and phase ssm_train's mamba2-130m steps (the
+             SSD kernels' custom ops, forward and backward) against their
+             measured peaks
+             (within LAUNCH_PEAK_RTOL) and FlopCounterMode's FLOPs
+             (exactly); reduced cells fake against real; one arch per
+             family at full width, LAUNCH_MAX_LAYERS layers, on the
+             production meshes; qwen3-1.7b train_4k at full depth.
+18e. examples — the four example drivers of repro_torch.examples on the
+             card as a user runs them: sparsity_dse; quickstart whole (its
+             14 sections; the bitlinear and block-sparse kernels in
+             sections 2 and 3); train_bitnet at its 100M size, 10 steps
+             with a checkpoint at step 10, then a restart to step 20 that
+             resumes there; serve_bitnet --full-size (BitNet-1.58B through
+             LegionServeBackend(dlegion(8)), 4 requests of 8 new tokens,
+             cross_validate asserted); exact kernel launches recorded.
 
 19. dist    — a one-rank NCCL group on the card (NCCL refuses two ranks
              on one device; the multi-rank paths are held to the JAX
@@ -229,7 +252,7 @@ Phases, each printing one JSON line:
              build_compressed_train_step in that group (int8 gradient
              exchange with error feedback) for 4 steps at 1 x 4096, lr
              TRAIN_LR: finite losses, the last below the first, ef non-zero
-             after step 1, 256 + 128 flash launches, peak memory; then
+             after step 1, 384 + 128 flash launches, peak memory; then
              reduced BitNet (float32) through the compressed step on the
              card against the CPU, losses within rel 1e-5.
 
@@ -638,6 +661,14 @@ def _numpy_tree(tree):
     return tree.numpy()
 
 
+# new tokens a request of phase serve: cut from 16 in PR 24 to keep the
+# script near 900 s of phases, where the examples phase added ~150; the
+# host-bound serving phases do not shorten with the model's depth (their
+# Legion step programs run one layer and scale it), and 8 tokens still
+# take 8 requests through 4 slots in two waves (PERF.md §4)
+SERVE_NEW_TOKENS = 8
+
+
 def phase_serve():
     import numpy as np
     import torch
@@ -672,7 +703,7 @@ def phase_serve():
     eng.step_observers.append(timed)
     rng = np.random.default_rng(0)
     reqs = [eng.submit(rng.integers(1, cfg.vocab, size=rng.integers(4, 24)),
-                       max_new_tokens=16) for _ in range(8)]
+                       max_new_tokens=SERVE_NEW_TOKENS) for _ in range(8)]
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
@@ -682,8 +713,8 @@ def phase_serve():
     if len(done) != len(reqs) or not all(r.done for r in reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
     for r in reqs:
-        if len(r.output) != 16 or not all(0 <= t < cfg.vocab
-                                          for t in r.output):
+        if len(r.output) != SERVE_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab for t in r.output):
             raise AssertionError(f"request {r.uid}: output {r.output}")
     if sum(launches.values()) == 0:
         raise AssertionError("the serve path launched no bitlinear kernel")
@@ -2835,6 +2866,7 @@ def phase_train():
     from repro_torch.data import synthetic_batch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import build_model
+    from repro_torch.models.common import remat_forwards, remat_groups
     from repro_torch.train import AdamW, build_train_step, init_train_state
 
     cfg = get_config("bitnet-1.58b")
@@ -2865,9 +2897,10 @@ def phase_train():
         seconds.append(time.perf_counter() - t)
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    # per step: 32 forward calls with the lse, 32 more as remat recomputes
-    # each block in the backward, and 32 backward calls (3 kernels each)
-    want = {"lse_bfloat16": 2 * cfg.layers * steps,
+    # per step: the forward calls with the lse, 3 a layer under the
+    # two-level remat (the step's, its group's recomputation, its own),
+    # and 32 backward calls (3 kernels each)
+    want = {"lse_bfloat16": remat_forwards(cfg, cfg.layers) * steps,
             "backward_bfloat16": cfg.layers * steps}
     got = {k: v for k, v in launches.items() if v}
     if got != want:
@@ -2879,8 +2912,9 @@ def phase_train():
 
     state, traced = traced_train_step(step, state, batch, seconds)
     emit({"phase": "train", "config": cfg.name, "params": n_params,
-          "dtype": cfg.dtype, "remat": cfg.remat, "batch": 1, "seq": seq,
-          "steps": steps, "lr": TRAIN_LR, "init_seconds": init_s,
+          "dtype": cfg.dtype, "remat": cfg.remat,
+          "remat_groups": remat_groups(cfg, cfg.layers), "batch": 1,
+          "seq": seq, "steps": steps, "lr": TRAIN_LR, "init_seconds": init_s,
           "losses": losses,
           "grad_norms": norms, "step_seconds": seconds,
           "tokens_per_second": seq / (sum(seconds[1:]) / (steps - 1)),
@@ -2888,30 +2922,41 @@ def phase_train():
           "flash_kernels_per_call": {
               "forward": 1, "backward": FLASH_BWD_KERNELS_PER_CALL},
           "traced_step": traced})
-    # the launch phase's check: the FLOPs of one more step, counted by
-    # torch's FlopCounterMode (the kernels' custom ops by their registered
-    # formulas), after every number above is taken
+    return got, measured_step(step, state, batch, peak, seconds)
+
+
+def measured_step(step, state, batch, peak, seconds):
+    """What phase launch holds a one-card dry run against: the peak and
+    mean step seconds measured, and the FLOPs of one more step counted by
+    torch's FlopCounterMode (the kernels' custom ops by their registered
+    formulas), taken after every number of the phase."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as fc:
         state, m = step(state, batch)
         float(m["loss"])
-    return got, {"peak_memory_bytes": peak, "flops": fc.get_total_flops(),
-                 "step_seconds": sum(seconds[1:]) / (steps - 1),
-                 "seq": seq, "batch": 1}
+    seq = batch["tokens"].shape[1]
+    return {"peak_memory_bytes": peak, "flops": fc.get_total_flops(),
+            "step_seconds": sum(seconds[1:]) / (len(seconds) - 1),
+            "seq": seq, "batch": batch["tokens"].shape[0]}
 
 
 def ssm_launches(cfg, passes: int, remat: bool):
     """The SSD and flash launches ``passes`` forward-and-backward passes of
     ``cfg``'s train step make, by LAUNCHES key: a remat'd block runs its
-    forward twice (once more in the backward).  Mamba-2 remats every block;
-    the hybrid remats each period of a shared attention and ``attn_every``
-    Mamba blocks but the last (the JAX package's scan, models/hybrid.py)."""
+    forward twice (once more in the backward), or three times under the
+    two-level schedule (``remat_forwards``).  Mamba-2 remats its blocks
+    on that schedule; the hybrid remats each period of a shared attention
+    and ``attn_every`` Mamba blocks but the last (the JAX package's scan,
+    models/hybrid.py)."""
+    from repro_torch.models.common import remat_forwards
     from repro_torch.models.hybrid import n_attn_apps
 
     twice = (lambda n: 2 * n) if remat else (lambda n: n)  # noqa: E731
     if cfg.family == "ssm":
-        ssd_fwd, flash_fwd, apps = twice(cfg.layers), 0, 0
+        ssd_fwd = (remat_forwards(cfg, cfg.layers) if remat
+                   else cfg.layers)
+        flash_fwd, apps = 0, 0
     else:
         apps = n_attn_apps(cfg)
         last = cfg.layers - (apps - 1) * cfg.attn_every
@@ -3055,10 +3100,11 @@ def phase_ssm_train():
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batch
     from repro_torch.models import build_model
+    from repro_torch.models.common import remat_groups
     from repro_torch.train import AdamW, build_train_step, init_train_state
 
     seq, steps = 4096, 4
-    out = {}
+    out, measured = {}, {}
     for cfg in (get_config("mamba2-130m"),
                 get_config("zamba2-7b").replace(
                     layers=SSM_TRAIN_ZAMBA2_LAYERS)):
@@ -3101,33 +3147,38 @@ def phase_ssm_train():
             raise AssertionError(f"ssm_train {cfg.name}: loss did not fall "
                                  f"at every step: {losses}")
         state, traced = traced_train_step(step, state, batch, seconds)
+        measured[cfg.name] = measured_step(step, state, batch, peak,
+                                           seconds)
         emit({"phase": "ssm_train", "config": cfg.name, "params": n_params,
               "layers": cfg.layers, "d_model": cfg.d_model,
-              "dtype": cfg.dtype, "remat": cfg.remat, "batch": 1, "seq": seq,
-              "steps": steps, "lr": lr, "init_seconds": init_s,
+              "dtype": cfg.dtype, "remat": cfg.remat,
+              "remat_groups": remat_groups(cfg, cfg.layers), "batch": 1,
+              "seq": seq, "steps": steps, "lr": lr, "init_seconds": init_s,
               "losses": losses, "grad_norms": norms, "step_seconds": seconds,
               "tokens_per_second": seq / (sum(seconds[1:]) / (steps - 1)),
-              "peak_memory_bytes": peak, "launches": launches,
+              "peak_memory_bytes": peak, "flops":
+              measured[cfg.name]["flops"], "launches": launches,
               "traced_step": traced})
         out[cfg.name] = launches
         del api, state, step, m
-    return out
+    return out, measured["mamba2-130m"]
 
 
 # phase launch: the dry run's one-card prediction of phase train's step
 # must hold its peak memory within this share, and count its FLOPs exactly
 LAUNCH_PEAK_RTOL = 0.10
-# the production sweep's cells, run in parallel processes (CPU only); the
-# whole sweep (39 traced cells) took 1,209 s on the card's host, so the
-# phase runs one arch per family, train_4k on one pod plus its first
-# runnable shape across two pods, at full width and at most
-# LAUNCH_MAX_LAYERS layers (Zamba2-7B's train step alone traced 513 s at
-# its 81), plus LAUNCH_FULL_DEPTH_CELL at its full depth, and the whole
+# the production sweep's cells, run in LAUNCH_JOBS parallel processes (CPU
+# only, beside the host-bound serving phases: start_launch_traces); the
+# whole sweep (41 traced cells) took 248 s in 8 processes on the card's
+# host (PR 24), so the phase runs one arch per family, train_4k on one pod
+# plus its first runnable shape across two pods, at full width and at
+# most LAUNCH_MAX_LAYERS layers (Zamba2-7B's train step alone traced 86 s
+# at its 81), plus LAUNCH_FULL_DEPTH_CELL at its full depth, and the whole
 # sweep is run on its own
 # (python -m repro_torch.launch.dryrun --all; PERF.md has its table)
 LAUNCH_FAMILY_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-130m",
                        "zamba2-7b", "hubert-xlarge", "internvl2-76b")
-LAUNCH_JOBS = 8
+LAUNCH_JOBS = 6
 LAUNCH_MAX_LAYERS = 8
 LAUNCH_FULL_DEPTH_CELL = ("qwen3-1.7b", "train_4k", "single")
 # reduced cells (arch, kind, batch) on a fake (2, 2, 2) mesh, traced on
@@ -3143,17 +3194,23 @@ LAUNCH_REDUCED_CELLS = (("qwen3-1.7b", "train", 8),
                         ("mamba2-130m", "train", 8))
 LAUNCH_REDUCED_RTOL = 0.01
 
+# the one-card cells phase launch holds against the train phases' steps,
+# traced at those phases' (sequence, batch)
+LAUNCH_ONE_CARD_ARCHS = ("bitnet-1.58b", "mamba2-130m")
+LAUNCH_TRAIN_SHAPE = (4096, 1)
+
 _ONE_CARD_CELL = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
 from repro_torch.configs import get_config, shape_by_name
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
+arch = sys.argv[2]
 shape = shape_by_name("train_4k")
-shape = type(shape)(shape.name, int(sys.argv[2]), int(sys.argv[3]),
+shape = type(shape)(shape.name, int(sys.argv[3]), int(sys.argv[4]),
                     shape.kind)
-r = dryrun.run_cell("bitnet-1.58b", "train_4k", "one",
-                    cfg=get_config("bitnet-1.58b"), shape=shape,
+r = dryrun.run_cell(arch, "train_4k", "one", cfg=get_config(arch),
+                    shape=shape,
                     mesh=make_host_mesh((1, 1), ("data", "model")))
 print(json.dumps(r))
 """
@@ -3188,65 +3245,139 @@ def _result(proc, what):
     return json.loads(out.strip().splitlines()[-1])
 
 
-def phase_launch(train_step):
-    """The dry run (repro_torch.launch.dryrun) against the card: (a) its
-    prediction of phase train's step (bitnet-1.58b train_4k cut to batch 1
-    on a one-card (data 1, model 1) mesh, traced on fake tensors in a
-    process of its own) must hold phase train's measured peak memory
-    within LAUNCH_PEAK_RTOL and count exactly the FLOPs that
-    FlopCounterMode counted on one real step; (b) the production cells
+def _run_launch_traces(out):
+    """Phase launch's dry-run traces, which need no card, into ``out``:
+    the one-card cells, the reduced cells fake and real and the
+    full-depth cell in processes of their own at once, then the family
+    sweep in LAUNCH_JOBS processes; an error is kept in ``out["error"]``
+    for phase launch to raise."""
+    from repro_torch.configs import applicable_shapes, get_config
+    from repro_torch.launch import dryrun
+
+    try:
+        t0 = time.perf_counter()
+        one_card = {arch: _python(_ONE_CARD_CELL, SRC, arch,
+                                  *map(str, LAUNCH_TRAIN_SHAPE))
+                    for arch in LAUNCH_ONE_CARD_ARCHS}
+        reduced = {(cell, mode): _python(_REDUCED_CELL, SRC,
+                                         *map(str, cell), mode)
+                   for cell in LAUNCH_REDUCED_CELLS
+                   for mode in ("fake", "real")}
+        full_out = os.path.join(ROOT, "build", "dryrun_full_depth.json")
+        if os.path.exists(full_out):
+            os.remove(full_out)
+        full = dryrun._cell_process(*LAUNCH_FULL_DEPTH_CELL, full_out,
+                                    "bf16", 0, subprocess.PIPE)
+        out["one_card"] = {arch: _result(proc, f"{arch} one-card dry run")
+                           for arch, proc in one_card.items()}
+        out["one_card_seconds"] = time.perf_counter() - t0
+        out["reduced"] = {key: _result(proc, f"{key[0]} {key[1]}")
+                          for key, proc in reduced.items()}
+        full_err = full.communicate(timeout=900)[1]
+        if full.returncode != 0:
+            raise AssertionError(f"launch: full-depth cell failed\n"
+                                 f"{full_err[-3000:]}")
+        with open(full_out) as f:
+            out["full"] = json.load(f)["|".join(LAUNCH_FULL_DEPTH_CELL)]
+
+        cells = []
+        for arch in LAUNCH_FAMILY_ARCHS:
+            shapes = applicable_shapes(get_config(arch))
+            cells.append((arch, "train_4k", "single"))
+            cells.append((arch, next(s for s in shapes
+                                     if shapes[s] == "run"), "multi"))
+        sweep_out = os.path.join(ROOT, "build", "dryrun_launch.json")
+        if os.path.exists(sweep_out):
+            os.remove(sweep_out)
+        t1 = time.perf_counter()
+        results = dryrun.run_sweep(cells, sweep_out, jobs=LAUNCH_JOBS,
+                                   max_layers=LAUNCH_MAX_LAYERS,
+                                   log=lambda m: None)
+        out["sweep"] = {"|".join(c): results["|".join(c)] for c in cells}
+        out["sweep_seconds"] = time.perf_counter() - t1
+        out["seconds"] = time.perf_counter() - t0
+    except Exception as e:          # raised again by phase launch
+        out["error"] = e
+
+
+def start_launch_traces():
+    """Start phase launch's traces in a thread beside the phases that
+    follow (the host-bound serve_load first); phase launch joins it."""
+    import threading
+
+    out = {}
+    thread = threading.Thread(target=_run_launch_traces, args=(out,),
+                              name="launch-traces")
+    thread.start()
+    return thread, out
+
+
+def phase_launch(train_steps, traces):
+    """The dry run (repro_torch.launch.dryrun) against the card, from the
+    traces ``start_launch_traces`` ran beside the earlier phases: (a) its
+    predictions of phase train's and phase ssm_train's steps
+    (``train_steps``: bitnet-1.58b's and mamba2-130m's train_4k cut to
+    batch 1 on a one-card (data 1, model 1) mesh, each traced on fake
+    tensors in a process of its own; mamba2's through the SSD kernels'
+    custom ops) must each hold its phase's measured peak memory within
+    LAUNCH_PEAK_RTOL and count exactly the FLOPs that FlopCounterMode
+    counted on one real step; (b) the production cells
     (16 x 16 and 2 x 16 x 16 meshes, full width, depth cut to
     LAUNCH_MAX_LAYERS) of one arch per family, and LAUNCH_FULL_DEPTH_CELL
     at full depth, must each end "ok", or "skipped" with
     applicable_shapes' reason; (c) the reduced cells' fake peak must
     equal their real run's, within LAUNCH_REDUCED_RTOL."""
     from repro_torch.configs import applicable_shapes, get_config
-    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import roofline
 
-    # (a), the reduced cells (c) and the full-depth cell, in processes of
-    # their own at once
-    t0 = time.perf_counter()
-    one_card = _python(_ONE_CARD_CELL, SRC, str(train_step["seq"]),
-                       str(train_step["batch"]))
-    reduced = {(cell, mode): _python(_REDUCED_CELL, SRC,
-                                     *map(str, cell), mode)
-               for cell in LAUNCH_REDUCED_CELLS for mode in ("fake", "real")}
-    full_out = os.path.join(ROOT, "build", "dryrun_full_depth.json")
-    if os.path.exists(full_out):
-        os.remove(full_out)
-    full = dryrun._cell_process(*LAUNCH_FULL_DEPTH_CELL, full_out, "bf16", 0,
-                                subprocess.PIPE)
-    cell = _result(one_card, "one-card dry run")
-    one_card_s = time.perf_counter() - t0
-    predicted_peak = cell["memory_per_device"]["peak_bytes_per_device"]
-    measured_peak = train_step["peak_memory_bytes"]
-    peak_err = predicted_peak / measured_peak - 1
-    flops_dry, flops_card = cell["per_device"]["flops"], train_step["flops"]
-    step_s = train_step["step_seconds"]
-    emit({"phase": "launch", "check": "one_card",
-          "cell": "bitnet-1.58b|train_4k|1x1 (batch 1)",
-          "predicted_peak_bytes": predicted_peak,
-          "measured_peak_bytes": measured_peak, "peak_rel_err": peak_err,
-          "memory_per_device": cell["memory_per_device"],
-          "flops_dry_run": flops_dry, "flops_flop_counter": flops_card,
-          "predicted_step_s": cell["predicted_step_s"],
-          "t_compute": cell["t_compute"], "t_memory": cell["t_memory"],
-          "bottleneck": cell["bottleneck"], "measured_step_s": step_s,
-          "model_flops": cell["model_flops"],
-          "model_flops_share": cell["model_flops"]
-          / (roofline.PEAK_FLOPS * step_s),
-          "counted_flops_share": flops_card / (roofline.PEAK_FLOPS * step_s),
-          "trace_seconds": one_card_s})
-    if abs(peak_err) > LAUNCH_PEAK_RTOL:
-        raise AssertionError(f"launch: predicted peak {predicted_peak} vs "
-                             f"measured {measured_peak} ({peak_err:+.3f})")
-    if flops_dry != flops_card:
-        raise AssertionError(f"launch: dry-run FLOPs {flops_dry} != "
-                             f"FlopCounterMode's {flops_card}")
+    thread, traced = traces
+    thread.join()
+    if "error" in traced:
+        raise traced["error"]
+    for arch in LAUNCH_ONE_CARD_ARCHS:
+        cell = traced["one_card"][arch]
+        step = train_steps[arch]
+        if (step["seq"], step["batch"]) != LAUNCH_TRAIN_SHAPE:
+            raise AssertionError(f"launch: {arch} measured at "
+                                 f"{step['seq']} x {step['batch']}, traced "
+                                 f"at {LAUNCH_TRAIN_SHAPE}")
+        predicted_peak = cell["memory_per_device"]["peak_bytes_per_device"]
+        measured_peak = step["peak_memory_bytes"]
+        peak_err = predicted_peak / measured_peak - 1
+        flops_dry, flops_card = cell["per_device"]["flops"], step["flops"]
+        step_s = step["step_seconds"]
+        emit({"phase": "launch", "check": "one_card",
+              "cell": f"{arch}|train_4k|1x1 (batch 1)",
+              "predicted_peak_bytes": predicted_peak,
+              "measured_peak_bytes": measured_peak,
+              "peak_rel_err": peak_err,
+              "memory_per_device": cell["memory_per_device"],
+              "flops_dry_run": flops_dry, "flops_flop_counter": flops_card,
+              "ssd_route": cell["ssd_route"],
+              "predicted_step_s": cell["predicted_step_s"],
+              "t_compute": cell["t_compute"], "t_memory": cell["t_memory"],
+              "bottleneck": cell["bottleneck"], "measured_step_s": step_s,
+              "model_flops": cell["model_flops"],
+              "model_flops_share": cell["model_flops"]
+              / (roofline.PEAK_FLOPS * step_s),
+              "counted_flops_share": flops_card
+              / (roofline.PEAK_FLOPS * step_s),
+              "trace_seconds": traced["one_card_seconds"]})
+        if abs(peak_err) > LAUNCH_PEAK_RTOL:
+            raise AssertionError(f"launch: {arch}: predicted peak "
+                                 f"{predicted_peak} vs measured "
+                                 f"{measured_peak} ({peak_err:+.3f})")
+        if flops_dry != flops_card:
+            raise AssertionError(f"launch: {arch}: dry-run FLOPs "
+                                 f"{flops_dry} != FlopCounterMode's "
+                                 f"{flops_card}")
+        want_route = "kernel" if arch == "mamba2-130m" else None
+        if cell["ssd_route"] != want_route:
+            raise AssertionError(f"launch: {arch}: SSD route "
+                                 f"{cell['ssd_route']}, want {want_route}")
 
     for cell in LAUNCH_REDUCED_CELLS:
-        fake, real = (_result(reduced[cell, m], f"{cell} {m}")
-                      for m in ("fake", "real"))
+        fake, real = (traced["reduced"][cell, m] for m in ("fake", "real"))
         err = fake["peak_bytes_per_device"] / real[
             "peak_bytes_per_device"] - 1
         emit({"phase": "launch", "check": "fake_vs_real",
@@ -3261,29 +3392,11 @@ def phase_launch(train_step):
                                              "output_bytes")):
             raise AssertionError(f"launch: {cell}: fake {fake} vs "
                                  f"real {real}")
-    full_err = full.communicate(timeout=900)[1]
-    if full.returncode != 0:
-        raise AssertionError(f"launch: full-depth cell failed\n"
-                             f"{full_err[-3000:]}")
-    with open(full_out) as f:
-        full_cell = json.load(f)["|".join(LAUNCH_FULL_DEPTH_CELL)]
 
-    cells = []
-    for arch in LAUNCH_FAMILY_ARCHS:
-        shapes = applicable_shapes(get_config(arch))
-        cells.append((arch, "train_4k", "single"))
-        cells.append((arch, next(s for s in shapes if shapes[s] == "run"),
-                      "multi"))
-    out = os.path.join(ROOT, "build", "dryrun_launch.json")
-    if os.path.exists(out):
-        os.remove(out)
-    t0 = time.perf_counter()
-    results = dryrun.run_sweep(cells, out, jobs=LAUNCH_JOBS,
-                               max_layers=LAUNCH_MAX_LAYERS,
-                               log=lambda m: None)
-    results = {"|".join(c): results["|".join(c)] for c in cells}
-    sweep_s = time.perf_counter() - t0
-    results["|".join(LAUNCH_FULL_DEPTH_CELL) + " (full depth)"] = full_cell
+    results = dict(traced["sweep"])
+    n_sweep = len(results)
+    results["|".join(LAUNCH_FULL_DEPTH_CELL) + " (full depth)"] = \
+        traced["full"]
     bad = {k: v.get("error", v.get("reason")) for k, v in results.items()
            if v.get("status") != "ok" and not (
                v.get("status") == "skipped" and v.get("reason")
@@ -3302,11 +3415,131 @@ def phase_launch(train_step):
                   "ssd_route", "layers", "t_trace_s")},
               "peak_bytes_per_device":
               r["memory_per_device"]["peak_bytes_per_device"]})
-    emit({"phase": "launch", "sweep_cells": len(cells),
-          "sweep_seconds": sweep_s, "jobs": LAUNCH_JOBS})
+    emit({"phase": "launch", "sweep_cells": n_sweep,
+          "sweep_seconds": traced["sweep_seconds"], "jobs": LAUNCH_JOBS,
+          "traces_seconds": traced["seconds"]})
     if bad:
         raise AssertionError(f"launch: cells not ok: {bad}")
     return results
+
+
+# phase examples: train_bitnet's run stops at its checkpoint at
+# EXAMPLES_CKPT_STEP and a second run resumes there to EXAMPLES_TRAIN_STEPS;
+# serve_bitnet serves full BitNet-1.58B with EXAMPLES_SERVE_ARGS
+EXAMPLES_CKPT_STEP, EXAMPLES_TRAIN_STEPS = 10, 20
+EXAMPLES_SERVE_ARGS = ("--full-size", "--requests", "4", "--max-new", "8")
+
+
+def _kernel_launches():
+    from repro_torch.kernels.bitlinear import ops as bitlinear
+    from repro_torch.kernels.block_sparse import ops as block_sparse
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    return {"bitlinear": sum(bitlinear.LAUNCHES.values()),
+            "block_sparse": sum(block_sparse.LAUNCHES.values()),
+            "flash_attention": sum(n for k, n in fa.LAUNCHES.items()
+                                   if not k.startswith("backward")),
+            "flash_attention_bwd": sum(n for k, n in fa.LAUNCHES.items()
+                                       if k.startswith("backward")),
+            "ssd": ssd_ops.LAUNCHES["float32"],
+            "ssd_bwd": ssd_ops.LAUNCHES["backward_float32"]}
+
+
+def phase_examples():
+    """The four example drivers (python -m repro_torch.examples.<name>) on
+    the card, each through its main() with its printed output captured:
+    sparsity_dse and quickstart whole, train_bitnet at its 100M size with
+    a restart from its checkpoint, serve_bitnet at full size.  Returns
+    the kernels' launches over the phase, by kernel, and the bitlinear
+    kernel's by bits."""
+    import contextlib
+    import io
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.examples import (
+        quickstart, serve_bitnet, sparsity_dse, train_bitnet,
+    )
+    from repro_torch.kernels.bitlinear import ops as bitlinear
+    from repro_torch.kernels.block_sparse import ops as block_sparse
+
+    _reset_launches()
+    bitlinear.reset_launches()
+    block_sparse.reset_launches()
+    seconds, launches = {}, {}
+
+    def run(name, main, argv):
+        before = _kernel_launches()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            out = main(list(argv))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: n - before[k] for k, n in
+                          _kernel_launches().items() if n - before[k]}
+        return out, text.getvalue()
+
+    _, text = run("sparsity_dse", sparsity_dse.main, ())
+    if "-> 8x16x16 selected" not in text or text.count("\n") != 16:
+        raise AssertionError(f"sparsity_dse printed:\n{text}")
+    _, text = run("quickstart", quickstart.main, ())
+    if not text.endswith("quickstart complete.\n"):
+        raise AssertionError(f"quickstart printed:\n{text[-2000:]}")
+    if not (launches["quickstart"].get("bitlinear")
+            and launches["quickstart"].get("block_sparse")):
+        raise AssertionError(
+            f"quickstart launches {launches['quickstart']}")
+
+    ckpt = os.path.join(ROOT, "build", "examples_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    train_args = ("--ckpt-dir", ckpt, "--ckpt-every",
+                  str(EXAMPLES_CKPT_STEP))
+    first, _ = run("train_bitnet", train_bitnet.main,
+                   ("--steps", str(EXAMPLES_CKPT_STEP)) + train_args)
+    t_first = seconds["train_bitnet"]
+    again, text = run("train_bitnet_restart", train_bitnet.main,
+                      ("--steps", str(EXAMPLES_TRAIN_STEPS)) + train_args)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [first["logged"][s]["loss"] for s in sorted(first["logged"])]
+    losses += [again["logged"][s]["loss"] for s in sorted(again["logged"])]
+    if (first["resumed"] != 0 or again["resumed"] != EXAMPLES_CKPT_STEP
+            or sorted(again["logged"]) != list(range(
+                EXAMPLES_CKPT_STEP + 1, EXAMPLES_TRAIN_STEPS + 1))
+            or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"train_bitnet: resumed {again['resumed']}, "
+                             f"losses {losses}")
+
+    served, _ = run("serve_bitnet", serve_bitnet.main, EXAMPLES_SERVE_ARGS)
+    done = served["done"]
+    if (len(done) != 4 or any(len(r.output) != 8 for r in done)
+            or served["worst_error"] != 0.0):
+        raise AssertionError(f"serve_bitnet: {[r.output for r in done]}, "
+                             f"worst error {served['worst_error']}")
+    total = {k: n for k, n in _kernel_launches().items() if n}
+    emit({"phase": "examples", "launches": total, "seconds": seconds,
+          "launches_by_example": launches,
+          "train_bitnet": {"params": first["cfg"].param_count(),
+                           "steps": EXAMPLES_TRAIN_STEPS,
+                           "resumed_at": again["resumed"],
+                           "losses": losses,
+                           "seconds_to_checkpoint": t_first},
+          "serve_bitnet": {"requests": len(done),
+                           "tokens": served["tokens"],
+                           "seconds": served["seconds"],
+                           "decode_steps":
+                           served["summary"]["decode_steps"],
+                           "cycles_per_decode_token": served["summary"][
+                               "cycles_per_decode_token"],
+                           "worst_xval_error": served["worst_error"],
+                           "kv_budget_hbm_bytes": torch.cuda
+                           .get_device_properties(0).total_memory}})
+    del served, first, again
+    return total, dict(bitlinear.LAUNCHES)
 
 
 # full-width BitNet-1.58B through the compressed step: the sequence length
@@ -3513,6 +3746,7 @@ def phase_train_compressed(gloo):
     from repro_torch.distributed.collectives import init_error_state
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import build_model
+    from repro_torch.models.common import remat_forwards
     from repro_torch.train import AdamW, init_train_state
     from repro_torch.train.optimizer import tree_leaves
     from repro_torch.train.train_loop import (
@@ -3553,9 +3787,8 @@ def phase_train_compressed(gloo):
                              for e in tree_leaves(box[0].ef))
     peak = torch.cuda.max_memory_allocated()
     launches = {k: n for k, n in fa.LAUNCHES.items() if n}
-    # as phase train: remat per block recomputes every forward once
-    forwards = 2 if cfg.remat == "block" else 1
-    want = {"lse_bfloat16": forwards * cfg.layers * steps,
+    # as phase train: the two-level remat runs each layer's forward 3 times
+    want = {"lse_bfloat16": remat_forwards(cfg, cfg.layers) * steps,
             "backward_bfloat16": cfg.layers * steps}
     if launches != want:
         raise AssertionError(f"train_compressed flash launches {launches}, "
@@ -3646,6 +3879,9 @@ def main() -> int:
     cfg, params, backend, launches = run(phase_serve)
     run(phase_window, cfg, params, backend)
     sharded_launches = run(phase_sharded, cfg, params)
+    # phase launch's dry-run traces need no card: they run beside the
+    # host-bound phases from serve_load on
+    launch_traces = start_launch_traces()
     load_launches = run(phase_serve_load, cfg, params)
     bs_rows = run(phase_block_sparse)
     bs_launches = {"ztb": run(phase_ztb), "zoo": run(phase_zoo)}
@@ -3672,9 +3908,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_launches_by_phase = {"ssm_train_model": run(phase_ssm_train_model)}
     torch.cuda.empty_cache()
-    ssm_launches_by_phase["ssm_train"] = run(phase_ssm_train)
+    ssm_launches_by_phase["ssm_train"], ssm_step = run(phase_ssm_train)
     torch.cuda.empty_cache()
-    run(phase_launch, train_step)
+    run(phase_launch, {"bitnet-1.58b": train_step, "mamba2-130m": ssm_step},
+        launch_traces)
+    examples_launches, examples_bits = run(phase_examples)
+    torch.cuda.empty_cache()
     from repro_torch.distributed import process_group
 
     # a one-rank NCCL group on the card (NCCL refuses two ranks on one
@@ -3719,6 +3958,14 @@ def main() -> int:
     for phase, sums in ssm_sums.items():
         ssd_launches[phase] = sums["ssd"].get("float32", 0)
         ssd_bwd_launches[phase] = sums["ssd"].get("backward_float32", 0)
+    # the example drivers' launches (phase examples), where they made any
+    for by_phase, kernel in ((bs_launches, "block_sparse"),
+                             (flash_launches, "flash_attention"),
+                             (bwd_launches, "flash_attention_bwd"),
+                             (ssd_launches, "ssd"),
+                             (ssd_bwd_launches, "ssd_bwd")):
+        if examples_launches.get(kernel):
+            by_phase["examples"] = examples_launches[kernel]
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
 
     # the SSD backward (3xTF32 on the tensor cores, heads in groups): the
@@ -3760,14 +4007,17 @@ def main() -> int:
         "source": "src/repro_torch/csrc/bitlinear.cu",
         "replaces": "src/repro/kernels/bitlinear/kernel.py:75",
         "launches": sum(launches.values()) + sum(load_launches.values())
-        + sharded_launches,
+        + sharded_launches + sum(examples_bits.values()),
         "launches_by_bits": {b: launches.get(b, 0) + load_launches.get(b, 0)
                              + (sharded_launches if b == 8 else 0)
+                             + examples_bits.get(b, 0)
                              for b in sorted(set(launches)
-                                             | set(load_launches))},
+                                             | set(load_launches)
+                                             | set(examples_bits))},
         "launches_by_phase": {"serve": sum(launches.values()),
                               "serve_load": sum(load_launches.values()),
-                              "sharded": sharded_launches},
+                              "sharded": sharded_launches,
+                              "examples": sum(examples_bits.values())},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "shape": {k: head[k] for k in ("stage", "m", "k", "n", "bits")},
         "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -25,6 +25,12 @@ as ``[B, S, N]`` shared by the heads (Mamba-2's single group): the
 backward kernel then takes the heads in groups (:func:`head_group`), sums
 their gradients over each group's heads inside a block and the groups'
 partials after it, in a fixed order.
+
+A traced run of the card's program (``device.card_trace``: the dry run)
+takes the custom ops for every tensor, fake or real: on real CPU tensors
+they run their plain versions (their CPU kernels below, which count no
+launch), so a real run of a traced cell allocates what its fake trace
+counts (the scratch, the backward's work, the outputs).
 """
 from __future__ import annotations
 
@@ -56,34 +62,17 @@ MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 # squared log error), which :func:`head_group` weighs
 SMS, GROUP_COST = 132, 1.5
 
-# scans a traced run took by route (:func:`route`)
-ROUTES: Dict[str, int] = {"kernel": 0, "grouped": 0}
-
-
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def route(dtx: torch.Tensor) -> str:
-    """Which scan the model runs on ``dtx`` (a tensor or a DTensor):
-    ``"grouped"`` (``ref.ssd_grouped_scan``, differentiated by autograd)
-    where a traced run of the card's program (``device.card_trace``, the
-    dry run) needs the gradient; else ``"kernel"``, the :func:`ssd`
-    wrapper (the kernels on the card, forward and backward; their plain
-    versions on the CPU).  Counted in ``ROUTES``."""
-    grouped = (card_tracing() and torch.is_grad_enabled()
-               and dtx.requires_grad)
-    which = "grouped" if grouped else "kernel"
-    ROUTES[which] += 1
-    return which
 
 
 def _resolve(backend: str, t: torch.Tensor) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
     if backend == "auto":
-        return "cuda" if on_card(t) else "reference"
+        # a traced run takes the custom ops on real CPU tensors too
+        return "cuda" if on_card(t) or card_tracing() else "reference"
     if backend == "cuda" and not on_card(t):
         raise ValueError(f"backend='cuda' needs CUDA tensors; got {t.device}")
     if backend != "cuda" and t.is_cuda:
@@ -441,6 +430,30 @@ def _plain_bwd(dta, dtx, b, c, dy, chunk: int, dh_final):
     if b.ndim == 3:
         db, dc = db.sum(1), dc.sum(1)
     return ddta.reshape(nb, nh, s), ddtx.reshape(nb, nh, s, p), db, dc
+
+
+# The custom ops' CPU kernels, which a traced run on real CPU tensors
+# reaches (``card_trace``): the plain versions, written into outputs laid
+# out as the kernels lay out theirs.  Their temporaries are the ops' own,
+# as the kernels' registers and shared memory are.
+@_ssd_op.register_kernel("cpu")
+def _(dta, dtx, b, c, scratch, chunk):
+    y, _ = _outputs(dtx, b.shape[-1], False)
+    return y.copy_(_plain4(dta, dtx, b, c, chunk, False, False)[0])
+
+
+@_ssd_state_op.register_kernel("cpu")
+def _(dta, dtx, b, c, scratch, chunk):
+    y, h = _outputs(dtx, b.shape[-1], True)
+    y_plain, h_plain = _plain4(dta, dtx, b, c, chunk, False, True)
+    return y.copy_(y_plain), h.copy_(h_plain)
+
+
+@_ssd_bwd_op.register_kernel("cpu")
+def _(dta, dtx, b, c, dy, scratch, h_final, dh_final, work, chunk):
+    return tuple(out.copy_(g) for out, g in zip(
+        _bwd_outputs(dtx, b), _plain_bwd(dta, dtx, b, c, dy, chunk,
+                                         dh_final)))
 
 
 class SSDScan(torch.autograd.Function):

@@ -354,13 +354,11 @@ def _sync_collectives():
 def trace_cell(fn, args, dm, *, reference: bool = False) -> Dict[str, Any]:
     """One call of ``fn(*args)`` under the cost counter, which also tracks
     its memory (inside the caller's fake mode and fake world): its
-    per-device memory split and counts, and the SSD routes it took.
+    per-device memory split and counts.
     ``reference`` also runs torch's ``MemTracker`` and gives its peak
     (``memtracker_peak_bytes``): on real tensors, a reading to hold the
     counter's against."""
     from torch.distributed.tensor.experimental import implicit_replication
-
-    from repro_torch.kernels.ssd import ops as ssd_ops
 
     inputs = _local_leaves(args)
     mt = contextlib.nullcontext()
@@ -369,7 +367,6 @@ def trace_cell(fn, args, dm, *, reference: bool = False) -> Dict[str, Any]:
 
         mt = MemTracker()
         mt.track_external(*inputs)
-    routes0 = dict(ssd_ops.ROUTES)
     counter = hlo_cost.CostCounter(hlo_cost.axis_names(dm))
     counter.track_external(inputs)
     arg_bytes = counter.live_bytes
@@ -378,7 +375,6 @@ def trace_cell(fn, args, dm, *, reference: bool = False) -> Dict[str, Any]:
         out = fn(*args)
     out_bytes = counter.bytes_of(_local_leaves(out), exclude=inputs)
     peak = counter.peak_bytes
-    routes = {k: ssd_ops.ROUTES[k] - routes0[k] for k in routes0}
     memory = {
         "argument_bytes": arg_bytes,
         "output_bytes": out_bytes,
@@ -390,16 +386,7 @@ def trace_cell(fn, args, dm, *, reference: bool = False) -> Dict[str, Any]:
         memory["memtracker_peak_bytes"] = max(
             (snap.get("Total", 0) for snap in
              mt.get_tracker_snapshot("peak").values()), default=0)
-    return {"cost": counter.summary(), "memory": memory,
-            "ssd_routes": routes}
-
-
-def _ssd_route(routes) -> Any:
-    if routes.get("grouped"):
-        return "ssd_grouped_scan"
-    if routes.get("kernel"):
-        return "ssd kernel (fake)"
-    return None
+    return {"cost": counter.summary(), "memory": memory}
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, *,
@@ -446,7 +433,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         key=lambda kv: -(kv[1]["flops"] / rl.PEAK_FLOPS
                          + kv[1]["bytes"] / rl.HBM_BW))[:8])
     out["by_op"] = cost["by_op"]
-    out["ssd_route"] = _ssd_route(traced["ssd_routes"])
+    # "kernel" where the step ran the SSD kernels' custom ops
+    out["ssd_route"] = "kernel" if any(
+        k.startswith("ssd_scan") for k in cost["by_op"]) else None
     out["per_device"] = {k: cost[k] for k in ("flops", "bytes")}
     out["layers"] = cfg.layers
     out["t_build_s"] = round(t_build, 1)

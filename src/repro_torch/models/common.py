@@ -1,6 +1,7 @@
 """Shared model building blocks (plain PyTorch functions over tensors)."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -143,32 +144,63 @@ def swiglu(x, w1, w2, w3, *, quantize: bool):
     return dense(h, w2, quantize=quantize)
 
 
-class _SumOverGroups(torch.autograd.Function):
-    """A partial sum all-reduced over process groups, for a value every
-    rank of those groups then uses alike; the gradient of each rank's part
-    is the (replicated) gradient of the sum, as in Megatron's
-    vocab-parallel cross-entropy."""
+class _TokenNLL(torch.autograd.Function):
+    """Per-token cross-entropy of float32 logits ``lg [..., V]`` against
+    targets ``tg [...]``: log sum exp(lg - m) + m - lg[tg], m the row
+    maximum; with ``groups``, ``lg`` is this rank's vocab shard from
+    ``v0`` and the maxima, sums and gold logits are all-reduced over those
+    process groups (vocab-parallel, as Megatron's cross-entropy).  The
+    backward is the closed form grad x (softmax - onehot(tg)) on this
+    rank's shard, from the saved exponentials.  Written out rather than
+    through ``torch.logsumexp`` and ``torch.gather``'s autograd, whose
+    kernels and backward hold logits-sized temporaries that a traced run
+    does not see or sees otherwise: under a dispatch mode (the dry run's
+    counter, fake tensors) gather's backward scatters out of place, one
+    more logits-sized tensor than on the card."""
 
     @staticmethod
-    def forward(ctx, x, groups):
+    def forward(ctx, lg, tg, v0: int, groups):
         import torch.distributed._functional_collectives as funcol
 
+        m = lg.amax(dim=-1, keepdim=True)
         for grp in groups:
-            x = funcol.all_reduce(x, "sum", grp)
-        return x
+            m = funcol.all_reduce(m, "max", grp)
+        # exp in place on the temporary lg - m: two logits-sized tensors
+        # live at once, and only the exponentials kept
+        e = (lg - m).exp_()
+        sumexp = e.sum(dim=-1)
+        idx = tg.long() - v0
+        vn = lg.shape[-1]
+        inside = (idx >= 0) & (idx < vn)
+        idx = idx.clamp(0, max(vn - 1, 0))[..., None]
+        gold = torch.where(inside, torch.gather(lg, -1, idx)[..., 0], 0.0)
+        for grp in groups:
+            sumexp = funcol.all_reduce(sumexp, "sum", grp)
+            gold = funcol.all_reduce(gold, "sum", grp)
+        # an op on a collective's result waits for it: what is saved is a
+        # plain tensor
+        ctx.save_for_backward(e, sumexp.reciprocal(), idx, inside)
+        return torch.log(sumexp) + m[..., 0] - gold
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        e, inv_sumexp, idx, inside = ctx.saved_tensors
+        dlg = e * (grad * inv_sumexp)[..., None]
+        dlg.scatter_add_(-1, idx, torch.where(inside, -grad, 0.0)[..., None])
+        return dlg, None, None, None
+
+
+def _token_nll(lg, tg, v0: int = 0, groups=()):
+    """:class:`_TokenNLL` of ``lg`` cast to float32."""
+    return _TokenNLL.apply(lg.to(torch.float32), tg, v0, tuple(groups))
 
 
 def _cross_entropy_sharded(logits, targets):
     """Per-token cross-entropy ``[B, S]`` of DTensor logits whose vocab
     may lie on mesh axes (vocab-parallel): each rank takes the row maxima,
     sums of exponentials and the gold logits of its vocab shard
-    (``local_map``), and these are reduced over the vocab's axes; the
-    result keeps the logits' row layout."""
-    import torch.distributed._functional_collectives as funcol
+    (``local_map`` of :func:`_token_nll`), and these are reduced over the
+    vocab's axes; the result keeps the logits' row layout."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -183,29 +215,16 @@ def _cross_entropy_sharded(logits, targets):
     targets = targets.redistribute(mesh, rows)
     groups = [mesh.get_group(i) for i, pl in enumerate(logits.placements)
               if pl.is_shard(vdim)]
-    shape, start = local_extent(logits)
-    v0, vn = start[-1], shape[-1]
-
-    def local(lg, tg):
-        lg = lg.to(torch.float32)
-        m = lg.detach().amax(dim=-1, keepdim=True)
-        for grp in groups:
-            m = funcol.all_reduce(m, "max", grp)
-        sumexp = _SumOverGroups.apply(torch.exp(lg - m).sum(dim=-1), groups)
-        idx = tg.long() - v0
-        inside = (idx >= 0) & (idx < vn)
-        gold = torch.gather(lg, -1, idx.clamp(0, max(vn - 1, 0))[..., None])
-        gold = _SumOverGroups.apply(torch.where(inside, gold[..., 0], 0.0),
-                                    groups)
-        return torch.log(sumexp) + m[..., 0] - gold
-
-    return local_map(local, out_placements=(rows,),
+    v0 = local_extent(logits)[1][-1]
+    return local_map(functools.partial(_token_nll, v0=v0, groups=groups),
+                     out_placements=(rows,),
                      in_placements=(tuple(logits.placements), rows),
                      device_mesh=mesh)(logits, targets)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy; logits [B, S, V] f32-cast, targets [B, S].
+    """Mean token cross-entropy; logits [B, S, V] f32-cast, targets [B, S]
+    (:func:`_token_nll`, the same program on one device as on a mesh).
 
     DTensor logits take :func:`_cross_entropy_sharded` (vocab-parallel),
     which reads no whole row of the vocab anywhere."""
@@ -213,10 +232,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
     if isinstance(logits, DTensor):
         return torch.mean(_cross_entropy_sharded(logits, targets))
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.mean(logz - gold)
+    return torch.mean(_token_nll(logits, targets))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
@@ -227,12 +243,9 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
 
 def best_grouping(layers: int) -> int:
     """Divisor G of ``layers`` minimizing G + layers/G: the JAX package's
-    two-level sqrt-remat grouping, a memory schedule of its scan over
-    layers (G outer carries plus one group's inner ones).  The port's
-    Python loop over layers keeps one carry a layer either way, so its
-    remat (:func:`maybe_remat`) is one level and nothing in the port calls
-    this: it is the JAX function's counterpart, held equal to it by a test,
-    for a caller that plans the JAX schedule."""
+    two-level ("sqrt") remat grouping, which :func:`remat_layers` follows:
+    G checkpointed groups of layers/G checkpointed layers keep G group
+    inputs plus one group's layer inputs, not one input a layer."""
     best = 1
     for g in range(1, layers + 1):
         if layers % g == 0 and (g + layers // g) < (best + layers // best):
@@ -240,17 +253,94 @@ def best_grouping(layers: int) -> int:
     return best
 
 
+def remat_groups(cfg, layers: int) -> int:
+    """The groups of :func:`remat_layers`' schedule over ``layers`` layers
+    (1: per-layer remat alone, or none)."""
+    return best_grouping(layers) if cfg.remat != "none" else 1
+
+
+# the products that ``remat="dots"`` keeps: jax.checkpoint_policies'
+# checkpoint_dots_with_no_batch_dims, where a [B, S, D] @ [D, F] product
+# runs as one 2-D mm of the flattened rows; batched products (bmm) and the
+# kernels' custom ops are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def maybe_remat(fn, cfg):
     """``fn`` recomputed in the backward instead of keeping its
     activations when ``cfg.remat`` is not ``"none"`` (the JAX package's
-    ``jax.checkpoint`` of one block): ``torch.utils.checkpoint`` without
-    reentrance, which keeps only the inputs.  The recomputation runs the
-    same operations, so gradients do not change."""
+    ``jax.checkpoint``): ``torch.utils.checkpoint`` without reentrance,
+    which keeps only the inputs (``"block"``), or, for ``"dots"``, also
+    the outputs of the products without batch dims (:data:`_DOTS`,
+    JAX's ``checkpoint_dots_with_no_batch_dims``).  The recomputation
+    runs the same operations, so gradients do not change."""
     if cfg.remat == "none":
         return fn
+    kw = {}
+    if cfg.remat == "dots":
+        from torch.utils.checkpoint import (
+            create_selective_checkpoint_contexts,
+        )
+
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
 
     def wrapped(*args):
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False, **kw)
 
     return wrapped
+
+
+def remat_forwards(cfg, layers: int) -> int:
+    """How many times a train step's forward and backward run the layers'
+    forward under :func:`remat_layers`."""
+    if cfg.remat == "none":
+        return layers
+    return (2 if remat_groups(cfg, layers) == 1 else 3) * layers
+
+
+def remat_layers(layer, params, x, cfg):
+    """``x`` through ``layer(p, x)`` for each ``p`` of ``params`` in order,
+    rematerialized as the JAX package's train scan is: where
+    :func:`remat_groups` gives G > 1, each group of len(params) / G
+    consecutive layers runs under an outer :func:`maybe_remat` with each
+    layer under its own inside (non-reentrant checkpoints nest), so the
+    backward keeps G group inputs plus one group's layer inputs at a time;
+    else each layer is rematerialized alone.  With G > 1 each layer's
+    forward runs three times (the step's, its group's recomputation, its
+    own), where per-layer remat alone runs it twice."""
+    inner = maybe_remat(layer, cfg)
+    groups = remat_groups(cfg, len(params))
+    if groups == 1:
+        for p in params:
+            x = inner(p, x)
+        return x
+
+    early_stop = torch.utils.checkpoint.set_checkpoint_early_stop
+
+    def group(x, *group_params):
+        # a layer's recomputation ends once it has what its backward
+        # saved, as JAX's drops the products nothing reads (the last
+        # projection's)
+        with early_stop(True):
+            for p in group_params:
+                x = inner(p, x)
+        return x
+
+    outer = maybe_remat(group, cfg)
+    size = len(params) // groups
+    # a group's recomputation runs all of its layers, as JAX's scan does,
+    # where torch's early stop would end it before the last, whose output
+    # no layer saved
+    with early_stop(False):
+        for g in range(groups):
+            x = outer(x, *params[g * size:(g + 1) * size])
+    return x

@@ -16,10 +16,9 @@ backward under autograd (the backward kernel on the card).  The
 group-shared B and C go in as ``[B, S, N]``, read by the kernels with head
 stride 0, uncopied; their gradients come back summed over the heads.
 ``cfg.kernel_backend``, a TPU choice between that branch and the grouped
-jnp scan, is not read: both compute the same function.  The grouped scan
-(:func:`repro_torch.kernels.ssd.ref.ssd_grouped_scan`) is what a traced
-train step of the card's program (the dry run) takes
-(``ssd_ops.route``).  Decode is the exact one-step recurrence in plain
+jnp scan, is not read: both compute the same function.  A traced run of
+the card's program (the dry run) takes the kernels' custom ops, forward
+and backward.  Decode is the exact one-step recurrence in plain
 tensor operations.  Prefill and decode
 write the caches in place (the returned cache holds the same tensors).
 """
@@ -34,13 +33,12 @@ from repro_torch.distributed.sharding import (
     constrain, constrain_layer_params, settle,
 )
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.kernels.ssd.ref import ssd_grouped_scan
 from repro_torch.models.common import (
     dense,
     dense_init,
-    maybe_remat,
     dtype_of,
     embed_init,
+    remat_layers,
     rms_norm,
 )
 from repro_torch.models.transformer import _layers, _stack
@@ -196,29 +194,14 @@ def ssm_block(
 def _scan(dta_h, dtx_h, bmat, cmat, chunk: int, return_state: bool):
     """The SSD scan over the whole sequence: dta ``[B,H,S]``, dtx
     ``[B,H,S,P]``, the group-shared B and C ``[B,S,N]`` -> (y ``[B,H,S,P]``,
-    terminal state or None).  The kernel's route hands B and C over as
-    they are (the kernels read them with head stride 0, no copy); a traced
-    train step takes the grouped scan (:func:`ssd_ops.route`).  On
-    DTensors the scan runs on each rank's batch rows and heads
+    terminal state or None), through :func:`ssd_ops.ssd`, which hands B
+    and C to the kernels as they are (read with head stride 0, no copy).
+    On DTensors the scan runs on each rank's batch rows and heads
     (``local_map``), which needs no collective; B and C, shared by the
     heads, are whole along the heads' mesh axes, and their gradients add up
     over those axes."""
-    grouped = ssd_ops.route(dtx_h) == "grouped"
 
     def heads(dta_h, dtx_h, bmat, cmat):
-        b, nh, s, _ = dtx_h.shape
-        if grouped:
-            pad = (-s) % chunk
-            if pad:
-                # padded steps have dta = 0 (decay 1) and zero inputs, so
-                # the outputs and the terminal state are unaffected
-                dta_h = F.pad(dta_h, (0, pad))
-                dtx_h, bmat, cmat = (F.pad(t, (0, 0, 0, pad))
-                                     for t in (dtx_h, bmat, cmat))
-            out = ssd_grouped_scan(dta_h, dtx_h, bmat, cmat, chunk=chunk,
-                                   return_state=return_state)
-            y, h = out if return_state else (out, None)
-            return (y[:, :, :s] if pad else y), h
         out = ssd_ops.ssd(dta_h, dtx_h, bmat, cmat, chunk=chunk,
                           return_state=return_state)
         return out if return_state else (out, None)
@@ -281,8 +264,9 @@ def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
     in place.  ``train_constraints`` lays each layer's parameters out by
     the active rules first (``constrain_layer_params``), as the JAX
     training scan does.  ``remat``: without a cache and with grad enabled
-    (the train path) each block is rematerialized as ``cfg.remat`` says,
-    as the JAX model's scan body is (the hybrid's inner stack is not)."""
+    (the train path) the blocks are rematerialized as ``cfg.remat`` says,
+    on the JAX model's scan schedule (:func:`remat_layers`; the hybrid's
+    inner stack is not)."""
     per_layer = _layers(blocks)
 
     def train_layer(lp, x):
@@ -292,7 +276,8 @@ def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
 
     if cache is None:
         if remat and torch.is_grad_enabled():
-            train_layer = maybe_remat(train_layer, cfg)
+            return remat_layers(train_layer, [per_layer[i] for i in layers],
+                                x, cfg)
         for i in layers:
             x = train_layer(per_layer[i], x)
         return x

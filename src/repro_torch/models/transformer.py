@@ -31,8 +31,8 @@ from repro_torch.models.common import (
     dense_init,
     dtype_of,
     embed_init,
-    maybe_remat,
     prompt_positions,
+    remat_layers,
     rms_norm,
     swiglu,
 )
@@ -130,13 +130,12 @@ def _train_block(cfg, p, x, positions):
 def _run_blocks(cfg, blocks, x, positions, caches=None, cache_pos=None):
     """Every layer in order; ``caches`` (stacked ``[L, ...]``) are written
     in place, layer by layer.  Without caches and with grad enabled (the
-    train path) each block is rematerialized as ``cfg.remat`` says."""
+    train path) the blocks are rematerialized as ``cfg.remat`` says, on
+    the JAX scan's schedule (:func:`remat_layers`)."""
     layers = _layers(blocks)
     if caches is None and torch.is_grad_enabled():
-        block = maybe_remat(lambda p, x: _train_block(cfg, p, x, positions),
-                            cfg)
-        for p in layers:
-            x = block(p, x)
+        x = remat_layers(lambda p, x: _train_block(cfg, p, x, positions),
+                         layers, x, cfg)
         return x, caches
     for i, p in enumerate(layers):
         if caches is None:

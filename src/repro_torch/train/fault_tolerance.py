@@ -59,11 +59,22 @@ class TrainingRunner:
         fail_at: Optional[int] = None,   # inject a crash (tests)
         install_signal_handler: bool = True,
     ) -> Dict:
+        previous = None
         if install_signal_handler:
             try:
-                signal.signal(signal.SIGTERM, self._handle_preemption)
+                previous = signal.signal(signal.SIGTERM,
+                                         self._handle_preemption)
             except ValueError:
                 pass   # non-main thread (tests)
+        try:
+            return self._run(total_steps, fail_at)
+        finally:
+            # the handler goes with the run: installed for good it would
+            # keep this runner, and its state, alive
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+
+    def _run(self, total_steps: int, fail_at: Optional[int]) -> Dict:
         step = self.maybe_restore()
         metrics: Dict = {}
         try:

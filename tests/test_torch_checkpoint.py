@@ -214,3 +214,34 @@ def test_crash_restart_resumes_bit_for_bit(tmp_path):
         state3, m3 = stepfn(state3, batch_fn(s))
     assert torch.equal(m["loss"], m3["loss"])
     _assert_same(runner2.state, tree_leaves(state3))
+
+
+def test_run_restores_the_sigterm_handler(tmp_path):
+    """run() installs its preemption handler for the run's length only:
+    the handler it replaced is back after a run, also one that raised, so
+    the signal module keeps no runner (nor its state) alive."""
+    import signal
+
+    cfg = tconfigs.reduced(tconfigs.get_config("qwen3-1.7b"))
+    api = build_model(cfg, device="cpu")
+    opt = AdamW(lr=1e-3, weight_decay=0.0)
+
+    def batch_fn(s):
+        return {k: torch.from_numpy(v) for k, v in synthetic_batch(
+            cfg, batch=2, seq=16, step=s).items()}
+
+    def sentinel(signum, frame):
+        pass
+
+    before = signal.signal(signal.SIGTERM, sentinel)
+    try:
+        runner = TrainingRunner(build_train_step(api, opt), batch_fn,
+                                init_train_state(api, opt, 0),
+                                Checkpointer(str(tmp_path)), device="cpu")
+        runner.run(1)
+        assert signal.getsignal(signal.SIGTERM) is sentinel
+        with pytest.raises(RuntimeError, match="injected failure"):
+            runner.run(3, fail_at=1)
+        assert signal.getsignal(signal.SIGTERM) is sentinel
+    finally:
+        signal.signal(signal.SIGTERM, before)

@@ -7,16 +7,18 @@ group, and the JAX cells in one that forces 8 host devices, as
 tests/test_dryrun_small.py does; the test process keeps one device and no
 process group.  The cells are test_dryrun_small.py's:
 qwen3-1.7b, mamba2-130m and granite-moe-1b-a400m reduced, remat per block,
-a 128-token train step of batch 8 on a (pod 2, data 2, model 2) mesh; on
-the port also reduced qwen3-1.7b's decode step (a 128-token cache) and its
-train step at 4096 tokens, whose attention runs the flash kernel on query
-shards (context parallelism).
+a 128-token train step of batch 8 on a (pod 2, data 2, model 2) mesh; the
+first two also at 4 layers, where the remat takes JAX's two-level
+schedule (2 groups of 2); on the port also reduced qwen3-1.7b's decode
+step (a 128-token cache) and its train step at 4096 tokens, whose
+attention runs the flash kernel on query shards (context parallelism).
 
 Tolerances: per-device matmul FLOPs within 2 % of the JAX compiled step's
 dot FLOPs (loop-aware, as repro.launch.hlo_cost counts them), the SSD
-scan's einsums apart from the rest; the fake trace's peak memory within
-1 % of torch's MemTracker reading of a real CPU run of the same cell; the
-flash launches' FLOPs exactly those of the sequence axis's last shard.
+scan's einsums apart from the rest, and the SSD kernels' custom ops
+exactly their FLOP formulas; the fake trace's peak memory within 1 % of
+torch's MemTracker reading of a real CPU run of the same cell; the flash
+launches' FLOPs exactly those of the sequence axis's last shard.
 """
 import json
 import os
@@ -29,14 +31,18 @@ import pytest
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ARCHS = ["qwen3-1.7b", "mamba2-130m", "granite-moe-1b-a400m"]
-# port cells: (arch, kind, tokens, batch); each runs fake and on real
-# tensors, but the context-parallel one (the plain attention would hold a
-# 4096^2 score tile on the CPU) only fake.  The decode cell's batch of 2
-# is below the batch axes' 4 ranks, so its KV cache splits along the
-# sequence, as the production decode cells' do
-CELLS = [(a, "train", 128, 8) for a in ARCHS] + [
-    ("qwen3-1.7b", "decode", 128, 2)]
-CP_CELL = ("qwen3-1.7b", "train", 4096, 8)
+# train cells held against JAX's: (arch, layers), 0 for reduced's own
+JAX_CELLS = [(a, 0) for a in ARCHS] + [("qwen3-1.7b", 4),
+                                       ("mamba2-130m", 4)]
+# port cells: (arch, kind, tokens, batch, layers); each runs fake and on
+# real tensors, but the context-parallel one (the plain attention would
+# hold a 4096^2 score tile on the CPU) and the 4-layer ones only fake.
+# The decode cell's batch of 2 is below the batch axes' 4 ranks, so its
+# KV cache splits along the sequence, as the production decode cells' do
+CELLS = [(a, "train", 128, 8, 0) for a in ARCHS] + [
+    ("qwen3-1.7b", "decode", 128, 2, 0)]
+DEEP_CELLS = [(a, "train", 128, 8, n) for a, n in JAX_CELLS if n]
+CP_CELL = ("qwen3-1.7b", "train", 4096, 8, 0)
 DEADLINE_S = 400
 
 PORT_SCRIPT = textwrap.dedent("""
@@ -48,8 +54,13 @@ PORT_SCRIPT = textwrap.dedent("""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
 
-    arch, mode, kind, tokens, batch = sys.argv[2:7]
+    from repro_torch.models.common import remat_groups
+    from repro_torch.models.mamba2 import _dims
+
+    arch, mode, kind, tokens, batch, layers = sys.argv[2:8]
     cfg = reduced(get_config(arch)).replace(remat="block")
+    if int(layers):
+        cfg = cfg.replace(layers=int(layers))
     shape = ShapeConfig("tiny_" + kind, int(tokens), int(batch), kind)
     r = dryrun.run_cell(arch, shape.name, "tiny", cfg=cfg, shape=shape,
                         mesh=make_host_mesh((2, 2, 2), ("pod", "data",
@@ -65,7 +76,12 @@ PORT_SCRIPT = textwrap.dedent("""
                       "dtype": cfg.dtype,
                       "coll_by_axis": r["coll_by_axis"],
                       "memory": r["memory_per_device"],
-                      "ssd_route": r["ssd_route"]}))
+                      "ssd_route": r["ssd_route"],
+                      "ssd": {k: v for k, v in ops.items()
+                              if k.startswith("ssd_scan")},
+                      "ssm_dims": _dims(cfg)[1:] + (cfg.ssd_chunk,)
+                      if cfg.family == "ssm" else None,
+                      "remat_groups": remat_groups(cfg, cfg.layers)}))
 """)
 
 JAX_SCRIPT = textwrap.dedent("""
@@ -107,8 +123,11 @@ JAX_SCRIPT = textwrap.dedent("""
 
     mesh = make_host_mesh((2, 2, 2), ("pod", "data", "model"))
     results = {}
-    for arch in sys.argv[2].split(","):
+    for cell in sys.argv[2].split(","):
+        arch, layers = cell.split(":")
         cfg = reduced(get_config(arch)).replace(remat="block")
+        if int(layers):
+            cfg = cfg.replace(layers=int(layers))
         shape = ShapeConfig("tiny_train", 128, 8, "train")
         api = build_model(cfg)
         opt = AdamW(lr=1e-3)
@@ -137,7 +156,7 @@ JAX_SCRIPT = textwrap.dedent("""
                        out_shardings=(state_sh, metrics_sh),
                        donate_argnums=(0,)).lower(
             shapes, batch).compile().as_text()
-        results[arch] = dots(text)
+        results[cell] = dots(text)
     print(json.dumps(results))
 """)
 
@@ -163,9 +182,10 @@ def runs(tmp_path_factory):
     start = lambda *a: subprocess.Popen(                   # noqa: E731
         [sys.executable, *map(str, a)], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env)
-    procs = {"jax": start(work / "jax_cells.py", ROOT, ",".join(ARCHS))}
+    procs = {"jax": start(work / "jax_cells.py", ROOT, ",".join(
+        f"{a}:{n}" for a, n in JAX_CELLS))}
     runs = [(cell, mode) for cell in CELLS for mode in ("fake", "real")]
-    runs.append((CP_CELL, "fake"))
+    runs += [(cell, "fake") for cell in DEEP_CELLS + [CP_CELL]]
     for cell, mode in runs:
         procs[cell, mode] = start(work / "port_cell.py", ROOT, cell[0], mode,
                                   *cell[1:])
@@ -182,34 +202,67 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_small_mesh_cells_trace(runs, arch):
     """test_dryrun_small.py's checks on the port: FLOPs counted, the
-    multi-pod step communicates across pods, and a tiny config is tiny."""
-    r = runs[(arch, "train", 128, 8), "fake"]
+    multi-pod step communicates across pods, and a tiny config is tiny;
+    mamba2's step runs the SSD kernels' custom ops, forward and
+    backward."""
+    r = runs[(arch, "train", 128, 8, 0), "fake"]
     assert r["flops"] > 0
     assert r["coll_by_axis"].get("pod", 0.0) > 0, \
         "multi-pod step must communicate across pods"
     assert r["memory"]["temp_bytes"] / 1e9 < 8
-    assert r["ssd_route"] == ("ssd_grouped_scan" if arch == "mamba2-130m"
-                              else None)
+    assert r["ssd_route"] == ("kernel" if arch == "mamba2-130m" else None)
+    assert set(r["ssd"]) == ({"ssd_scan", "ssd_scan_bwd"}
+                             if arch == "mamba2-130m" else set())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_per_device_flops_match_jax(runs, arch):
+def _ssd_formulas(r, tokens: int):
+    """The SSD kernels' FLOPs by their formulas at this rank's shard of
+    the step: the batch over pod x data (4), the heads over model (2)."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.ssd.ops import head_group
+
+    nh, n, p, chunk = r["ssm_dims"]
+    nb, nh = 8 // 4, nh // 2
+    group = head_group(nb, nh, -(-tokens // chunk))
+    return {"ssd_scan": cost.ssd_flops(nb, nh, tokens, n, p, chunk),
+            "ssd_scan_bwd": cost.ssd_bwd_flops(nb, nh, tokens, n, p, chunk,
+                                               group)}
+
+
+@pytest.mark.parametrize("cell", JAX_CELLS,
+                         ids=lambda c: c[0] + (f"-{c[1]}layers" if c[1]
+                                               else ""))
+def test_per_device_flops_match_jax(runs, cell):
     """Per-device matmul FLOPs against the JAX compiled step's dot FLOPs,
     within 2 %; the attention einsums run the same products on both sides
     at this length, so they are in the count.  qwen3 and granite-moe are
-    equal.  The one family that differs is mamba2's SSD scan
-    (ssd_grouped_scan's einsums: ``bmm`` here, 1.5 % fewer, as torch runs
-    some of its contractions as broadcast products); mamba2's projections
-    (``mm``) equal the JAX step's other dots."""
-    port, jax_ = runs[(arch, "train", 128, 8), "fake"], runs["jax"][arch]
-    total = jax_["ssd"] + jax_["rest"]
-    assert port["flops"] == pytest.approx(total, rel=0.02)
+    equal, at 4 layers too, where both sides remat in two levels (2
+    groups of 2 layers: each layer's forward three times, a layer's own
+    recomputation without its last projection, which nothing reads).
+    The one family that differs is mamba2's SSD scan: the port runs the
+    kernels' custom ops, counted exactly by their formulas
+    (kernels/cost.py), where JAX differentiates ssd_grouped_scan's
+    einsums; the formulas count 1.108 times JAX's SSD dots at 2 layers and
+    1.083 times at 4.  mamba2's projections (``mm``) equal the JAX step's
+    other dots, and nothing else counts FLOPs."""
+    arch, layers = cell
+    port = runs[(arch, "train", 128, 8, layers), "fake"]
+    jax_ = runs["jax"][f"{arch}:{layers}"]
+    assert port["remat_groups"] == (2 if layers == 4 else 1)
     if arch == "mamba2-130m":
         assert port["mm"] == jax_["rest"]
-        assert port["bmm"] == pytest.approx(jax_["ssd"], rel=0.02)
+        want = _ssd_formulas(port, 128)
+        for name, op in port["ssd"].items():
+            assert op["flops"] == op["calls"] * want[name], name
+        ssd = sum(op["flops"] for op in port["ssd"].values())
+        assert port["flops"] == port["mm"] + ssd
+        assert port["bmm"] == 0
+        assert ssd / jax_["ssd"] == pytest.approx(
+            1.083 if layers else 1.108, abs=5e-4)
     else:
         assert jax_["ssd"] == 0
-        assert port["flops"] == total
+        assert port["flops"] == pytest.approx(jax_["rest"], rel=0.02)
+        assert port["flops"] == jax_["rest"]
 
 
 @pytest.mark.parametrize(

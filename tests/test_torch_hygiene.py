@@ -61,6 +61,10 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.legion import ShardedExecutor\n"
         "from repro_torch.train.train_loop import "
         "build_compressed_train_step\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.serve_bitnet\n"
+        "import repro_torch.examples.train_bitnet\n"
+        "import repro_torch.examples.sparsity_dse\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -329,24 +329,62 @@ def test_ssd_flop_formula_counts_the_plain_products(chunk):
 
 def test_kernel_route_under_card_trace():
     """Inside card_trace a fake tensor takes the kernel's route (its fake
-    custom op), real CPU tensors the plain versions, and a traced train
-    step's SSD scan the grouped scan; outside it the scan is the
-    wrapper's."""
+    custom op) and real CPU tensors the plain versions, but for the SSD
+    scan, whose custom ops run their plain versions on them (so that a
+    real run of a traced cell allocates what the fake trace counts);
+    outside it CPU tensors take the plain versions, fake or not."""
     from repro_torch.kernels.bitlinear.ops import resolve_backend
 
     real = torch.zeros(2, 3, 4, 5, requires_grad=True)
-    assert ssd_ops.route(real) == "kernel"
+    assert ssd_ops._resolve("auto", real) == "reference"
     with card_trace():
         assert resolve_backend("auto", real) == "reference"
-        assert ssd_ops.route(real) == "grouped"
+        assert ssd_ops._resolve("auto", real) == "cuda"
         with FakeTensorMode():
             fake = torch.zeros(2, 3, 4, 5, requires_grad=True)
             assert resolve_backend("auto", fake) == "cuda"
-            assert ssd_ops.route(fake) == "grouped"
-            with torch.no_grad():
-                assert ssd_ops.route(fake) == "kernel"
+            assert ssd_ops._resolve("auto", fake) == "cuda"
     with FakeTensorMode():
         assert resolve_backend("auto", torch.zeros(2)) == "reference"
+        assert ssd_ops._resolve("auto", torch.zeros(2)) == "reference"
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+def test_traced_ssd_on_cpu_tensors_runs_the_plain_versions(return_state):
+    """Under card_trace the SSD scan on real CPU tensors goes through the
+    custom ops, forward and backward (B and C shared by the heads, a
+    terminal state's gradient entering), and gives the plain route's
+    values and gradients bit for bit, launching nothing; the counter sees
+    the ops, not the plain versions' products."""
+    gen = torch.Generator().manual_seed(0)
+    nb, nh, s, p, n, chunk = 2, 3, 40, 8, 4, 16
+    args = [-torch.rand(nb, nh, s, generator=gen),
+            torch.randn(nb, nh, s, p, generator=gen),
+            torch.randn(nb, s, n, generator=gen),
+            torch.randn(nb, s, n, generator=gen)]
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in args]
+        out = ssd_ops.ssd(*leaves, chunk=chunk, return_state=return_state)
+        y, h = out if return_state else (out, None)
+        loss = (y * y).sum() + (h.sum() if h is not None else 0)
+        loss.backward()
+        return [y, *(t.grad for t in leaves)]
+
+    want = run()
+    ssd_ops.reset_launches()
+    counter = hlo_cost.CostCounter()
+    with card_trace(), counter:
+        got = run()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not any(ssd_ops.LAUNCHES.values())
+    fwd = "ssd_scan_state" if return_state else "ssd_scan"
+    assert counter.by_op[fwd]["calls"] == 1
+    assert counter.by_op["ssd_scan_bwd"]["calls"] == 1
+    assert counter.by_op[fwd]["flops"] == cost.ssd_flops(nb, nh, s, n, p,
+                                                         chunk)
+    assert "bmm" not in counter.by_op
 
 
 def test_cost_formulas_are_chip_smokes_bounds():

@@ -439,6 +439,114 @@ def test_remat_changes_no_gradient(monkeypatch):
         assert torch.equal(a, b)
 
 
+def _deep(arch, layers, **kw):
+    return tconfigs.reduced(tconfigs.get_config(arch)).replace(
+        dtype="float32", layers=layers, **kw)
+
+
+@pytest.mark.parametrize("arch", ["bitnet-1.58b", "mamba2-130m"])
+def test_remat_schedules_change_no_gradient(monkeypatch, arch):
+    """At 8 layers (best_grouping 2): per-layer remat alone (flat), JAX's
+    two-level schedule (``"block"``) and the ``"dots"`` policy give the
+    loss and gradients of the step without remat, bit for bit: the
+    recomputations run the same operations."""
+    tcfg = _deep(arch, 8)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        tcfg, batch=2, seq=64, step=0).items()}
+    params = build_model(tcfg, device="cpu").init(0)
+
+    def grads(remat, groups=port_common.remat_groups):
+        with monkeypatch.context() as m:
+            m.setattr(port_common, "remat_groups", groups)
+            api = build_model(tcfg.replace(remat=remat), device="cpu")
+            return value_and_grad(api.loss, params, batch)
+
+    want = grads("none")
+    for got in (grads("block", lambda cfg, n: 1), grads("block"),
+                grads("dots")):
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(tree_leaves(got[1]), tree_leaves(want[1])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("remat", ["block", "dots"])
+@pytest.mark.parametrize("arch", ["bitnet-1.58b", "mamba2-130m"])
+def test_remat_groups_as_jax_scan(monkeypatch, arch, remat):
+    """The train forward at 8 layers is G = best_grouping(8) = 2 outer
+    non-reentrant checkpoints of 4 layers each, each layer under its own
+    inside (``"dots"`` passing its selective context to both); a step
+    runs each layer's forward 3 times (``remat_forwards``)."""
+    tcfg = _deep(arch, 8, remat=remat)
+    assert port_common.remat_groups(tcfg, 8) == 2
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        tcfg, batch=1, seq=32, step=0).items()}
+    api = build_model(tcfg, device="cpu")
+    params = api.init(0)
+    real = torch.utils.checkpoint.checkpoint
+    depth, calls, layers = [0], [], []
+
+    def spied(fn, *a, **kw):
+        calls.append((depth[0], kw.get("use_reentrant"),
+                      "context_fn" in kw))
+        depth[0] += 1
+        try:
+            return real(fn, *a, **kw)
+        finally:
+            depth[0] -= 1
+
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", spied)
+    api.loss(params, batch)
+    dots = remat == "dots"
+    assert calls == ([(0, False, dots)] + [(1, False, dots)] * 4) * 2
+    from repro_torch.models import mamba2, transformer
+
+    module, name = ((transformer, "_train_block") if arch.startswith(
+        "bitnet") else (mamba2, "ssm_block"))
+    block = getattr(module, name)
+
+    def counted(*a, **kw):
+        layers.append(1)
+        return block(*a, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    value_and_grad(api.loss, params, batch)
+    assert len(layers) == port_common.remat_forwards(tcfg, 8) == 3 * 8
+
+
+def test_two_level_remat_lowers_the_peak(monkeypatch):
+    """The cost counter's peak of a reduced 16-layer Mamba-2 step
+    (best_grouping 4; 4,096 tokens and a 256-token vocabulary, so that the
+    layer inputs ("carries") set the peak, not the parameters' gradients):
+    per-layer remat keeps the 16 layer inputs into the backward, the
+    two-level schedule the 4 group inputs and, in the group being
+    differentiated, its other 3 layers' inputs (its first layer's is the
+    group's): the peak falls by exactly L - G - L/G + 1 = 9 carries."""
+    from repro_torch.launch.hlo_cost import CostCounter
+
+    tcfg = _deep("mamba2-130m", 16, remat="block", vocab=256)
+    groups = port_common.remat_groups(tcfg, 16)
+    b, s = 4, 1024
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        tcfg, batch=b, seq=s, step=0).items()}
+    api = build_model(tcfg, device="cpu")
+    params = api.init(0)
+
+    def peak(groups_fn):
+        with monkeypatch.context() as m:
+            m.setattr(port_common, "remat_groups", groups_fn)
+            counter = CostCounter()
+            counter.track_external(tree_leaves(params))
+            base = counter.live_bytes
+            with counter:
+                value_and_grad(api.loss, params, batch)
+        return counter.peak_bytes - base
+
+    carry = b * s * tcfg.d_model * 4
+    drop = peak(lambda cfg, n: 1) - peak(port_common.remat_groups)
+    assert groups == 4
+    assert drop == (16 - groups - 16 // groups + 1) * carry
+
+
 @pytest.mark.parametrize("layers", [1, 2, 12, 32, 36, 81])
 def test_best_grouping_as_jax(layers):
     from repro.models.common import best_grouping as jax_grouping
