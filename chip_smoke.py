@@ -321,6 +321,17 @@ def kernel_name(key: str) -> str:
     return head[-1].split("::")[-1] if head else ""
 
 
+def on_card(evt) -> bool:
+    """Whether a profiler event is work the card ran (a kernel, copy or
+    fill), not the card-side copy of a ``record_function`` span, which
+    covers the kernels launched inside it (the train step's spans,
+    ``repro_torch.obs.spans``)."""
+    from torch.autograd import DeviceType
+
+    return (evt.device_type == DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False))
+
+
 def device_us_by_kernel(fn, iters: int, kernels, per_call: int = 1,
                         attempts: int = 3):
     """Device time per call of each kernel named in ``kernels`` (one
@@ -366,7 +377,6 @@ def all_device_us(fn, iters: int, attempts: int = 3):
     not name.  A trace that holds none is taken again (``attempts`` in
     all), then None."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
@@ -376,7 +386,7 @@ def all_device_us(fn, iters: int, attempts: int = 3):
                 fn(i)
             torch.cuda.synchronize()
         total = sum(evt.time_range.elapsed_us() for evt in prof.events()
-                    if evt.device_type == DeviceType.CUDA)
+                    if on_card(evt))
         if total:
             return total / iters
     return None
@@ -1808,7 +1818,6 @@ def traced_prefill(api, params, prompt, max_seq):
     summed from the trace, for every kernel and for the SSD and flash
     kernels alone; None where the trace shows no device activity."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     tokens = torch.from_numpy(prompt[None, :].astype("int64")).to(api.device)
@@ -1825,7 +1834,7 @@ def traced_prefill(api, params, prompt, max_seq):
     ms = {"all": 0.0, "ssd_kernel": 0.0, "flash_kernel": 0.0}
     calls = dict.fromkeys(ms, 0)
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        if not on_card(evt):
             continue
         for name in ms:
             if name == "all" or name in evt.name:
@@ -2822,7 +2831,6 @@ def traced_train_step(step, state, batch, seconds):
     device's idle share against its own wall and against the untraced
     steps' mean, the ten kernels with the most device time)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2834,7 +2842,7 @@ def traced_train_step(step, state, batch, seconds):
         traced_s = time.perf_counter() - t
     by_name = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        if on_card(evt):
             name = kernel_name(evt.name) or evt.name
             by_name[name] = by_name.get(name, 0.0) + \
                 evt.time_range.elapsed_us() / 1e3

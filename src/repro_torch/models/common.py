@@ -8,6 +8,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.distributed.sharding import constrain, settle
+from repro_torch.obs.spans import layer_span
 from repro_torch.quant.bitnet import fake_quant_act, fake_quant_weight
 
 
@@ -316,8 +317,14 @@ def remat_layers(layer, params, x, cfg):
     backward keeps G group inputs plus one group's layer inputs at a time;
     else each layer is rematerialized alone.  With G > 1 each layer's
     forward runs three times (the step's, its group's recomputation, its
-    own), where per-layer remat alone runs it twice."""
-    inner = maybe_remat(layer, cfg)
+    own), where per-layer remat alone runs it twice.  Each run of
+    ``layer`` is a ``models.layer`` span, or ``models.layer_recompute``
+    inside the backward (``repro_torch.obs.spans.layer_span``)."""
+    def spanned(p, x):
+        with layer_span():
+            return layer(p, x)
+
+    inner = maybe_remat(spanned, cfg)
     groups = remat_groups(cfg, len(params))
     if groups == 1:
         for p in params:

@@ -36,6 +36,7 @@ from repro_torch.models.common import (
     rms_norm,
     swiglu,
 )
+from repro_torch.obs.spans import layer_span
 
 
 class HybridCache(NamedTuple):
@@ -108,7 +109,8 @@ def _forward_cached(cfg, params, x, positions,
     apps = n_attn_apps(cfg)
     if cache is None:
         def period(x, app):
-            x, _ = _shared_block(cfg, shared, x, positions)
+            with layer_span():
+                x, _ = _shared_block(cfg, shared, x, positions)
             return _mamba_stack(cfg, x, params["blocks"], app)
 
         # the JAX scan rematerializes every full period, not the tail one

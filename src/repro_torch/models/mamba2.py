@@ -42,6 +42,7 @@ from repro_torch.models.common import (
     rms_norm,
 )
 from repro_torch.models.transformer import _layers, _stack
+from repro_torch.obs.spans import layer_span
 
 
 class SSMCache(NamedTuple):
@@ -266,7 +267,8 @@ def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
     training scan does.  ``remat``: without a cache and with grad enabled
     (the train path) the blocks are rematerialized as ``cfg.remat`` says,
     on the JAX model's scan schedule (:func:`remat_layers`; the hybrid's
-    inner stack is not)."""
+    inner stack is not).  Each train layer runs in a ``models.layer`` span
+    (``repro_torch.obs.spans.layer_span``)."""
     per_layer = _layers(blocks)
 
     def train_layer(lp, x):
@@ -279,7 +281,8 @@ def run_blocks(cfg, blocks, x, layers, cache: Optional[SSMCache] = None,
             return remat_layers(train_layer, [per_layer[i] for i in layers],
                                 x, cfg)
         for i in layers:
-            x = train_layer(per_layer[i], x)
+            with layer_span():
+                x = train_layer(per_layer[i], x)
         return x
     for i in layers:
         lp = per_layer[i]

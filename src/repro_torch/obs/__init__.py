@@ -1,4 +1,5 @@
-"""Observability subsystem — timelines, rooflines, metrics, load gen.
+"""Observability subsystem — timelines, rooflines, metrics, load gen,
+and the train step's wall-clock spans.
 
 Four layers riding the runtime's pinned Instrument event stream and the
 serve path's cycle model:
@@ -16,6 +17,13 @@ serve path's cycle model:
             live `ServeEngine` on a virtual cycle clock — p50/p99 TTFT,
             per-token latency, occupancy, rejected/deferred admissions,
             and SLO-graded goodput (`run_load(slo=SLO(...))`)
+
+and one on the card's wall clock:
+
+- spans:    `span` / `layer_span` / `backward_span` — `torch.profiler`
+            ranges of the train step (forward, backward on the autograd
+            thread, remat recomputation, fake-quant, AdamW), recorded only
+            while a profiler records
 
 Submodules import lazily (PEP 562): `repro_torch.obs.metrics` stays importable
 from `repro_torch.serve.engine` without pulling `loadgen`'s serve-side
@@ -54,6 +62,7 @@ if TYPE_CHECKING:  # pragma: no cover
         TimelineError,
         TimelineTracer,
     )
+    from repro_torch.obs.spans import backward_span, layer_span, span
 
 _EXPORTS = {
     "Arrival": "repro_torch.obs.loadgen",
@@ -78,6 +87,9 @@ _EXPORTS = {
     "TimelineCell": "repro_torch.obs.timeline",
     "TimelineError": "repro_torch.obs.timeline",
     "TimelineTracer": "repro_torch.obs.timeline",
+    "backward_span": "repro_torch.obs.spans",
+    "layer_span": "repro_torch.obs.spans",
+    "span": "repro_torch.obs.spans",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import spans
 from repro_torch.quant import packing
 
 EPS = 1e-5
@@ -58,9 +59,10 @@ def pack_weight_ternary(w: torch.Tensor) -> QuantizedTensor:
 
 def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
     """Ternary fake-quant with STE: forward = dequant(quant(w)), grad = 1."""
-    q, gamma = quantize_weight_ternary(w)
-    wq = q.to(w.dtype) * gamma.to(w.dtype)
-    return w + (wq - w).detach()
+    with spans.span(spans.FAKE_QUANT_WEIGHT):
+        q, gamma = quantize_weight_ternary(w)
+        wq = q.to(w.dtype) * gamma.to(w.dtype)
+        return w + (wq - w).detach()
 
 
 # --------------------------------------------------------------------------- #
@@ -79,9 +81,10 @@ def quantize_act_int8(x: torch.Tensor, axis: int = -1):
 
 def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
     """Per-token int8 fake-quant with STE."""
-    s = act_scale(x)
-    xq = torch.clamp(torch.round(x / s), -128, 127) * s
-    return x + (xq.to(x.dtype) - x).detach()
+    with spans.span(spans.FAKE_QUANT_ACT):
+        s = act_scale(x)
+        xq = torch.clamp(torch.round(x / s), -128, 127) * s
+        return x + (xq.to(x.dtype) - x).detach()
 
 
 # --------------------------------------------------------------------------- #

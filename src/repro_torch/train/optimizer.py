@@ -15,6 +15,8 @@ from typing import Any, Callable, List, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.obs import spans
+
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of nested dicts, tuples, lists and
@@ -71,7 +73,12 @@ class AdamW:
         """Returns (new_params, new_state, grad_norm): gradients clipped by
         their global norm, bias-corrected moments in float32, decoupled
         weight decay on matrices only, parameters cast back to their own
-        type."""
+        type.  Under ``torch.profiler`` it runs in the span
+        ``train.optimizer``."""
+        with spans.span(spans.OPTIMIZER):
+            return self._update(grads, state, params)
+
+    def _update(self, grads, state: AdamWState, params):
         f32 = torch.float32
         gnorm = global_norm(grads)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)

@@ -20,6 +20,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import redistribute
+from repro_torch.obs import spans
 from repro_torch.train.optimizer import (
     AdamW, AdamWState, tree_leaves, tree_map,
 )
@@ -44,10 +45,14 @@ def init_train_state(api, optimizer: AdamW, seed, *,
 def value_and_grad(loss_fn: Callable, params, batch):
     """(loss, grads) of ``loss_fn(params, batch)`` with respect to every
     leaf of ``params``; a leaf the loss does not read gets zeros, as
-    ``jax.grad`` gives it.  The parameters are not modified."""
+    ``jax.grad`` gives it.  The parameters are not modified.  Under
+    ``torch.profiler`` the forward and the backward run in the spans
+    ``train.forward`` and ``train.backward`` (``repro_torch.obs.spans``)."""
     tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
     inputs = tree_leaves(tracked)
-    loss = loss_fn(tracked, batch)
+    with spans.span(spans.FORWARD):
+        loss = loss_fn(tracked, batch)
+    loss = spans.backward_span(loss)
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     filled = iter([torch.zeros_like(p) if g is None else g
                    for p, g in zip(inputs, grads)])
